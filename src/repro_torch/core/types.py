@@ -1,0 +1,106 @@
+"""Core value types of the FedFog orchestration layer (port of
+``repro/core/types.py``).
+
+Everything is vectorized over a static client population of size ``N``.
+Fields are tensors on the simulator's device; the dataclasses are frozen
+and rebuilt with ``dataclasses.replace`` like their JAX counterparts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+
+Array = torch.Tensor
+
+
+def static_on(x) -> bool:
+    """Truthiness of a config scalar that gates a Python branch:
+    ``x > 0`` for a concrete value, False for None. (The JAX package also
+    answers True for sweep-lifted tracers; the port has no tracers.)"""
+    return x is not None and bool(x > 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientTelemetry:
+    """Raw per-client resource readings, each shape ``(N,)`` in [0, 1]:
+    the Eq. 1 inputs plus the normalized energy level used by Eq. 3/7."""
+
+    cpu: Array
+    mem: Array
+    batt: Array
+    energy: Array
+
+    @property
+    def num_clients(self) -> int:
+        return self.cpu.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerWeights:
+    """The (alpha, beta) weight vectors of Eq. 1 and Eq. 7."""
+
+    alpha: Array  # (3,) health weights: cpu, mem, batt. Sum to 1.
+    beta: Array  # (3,) utility weights: health, energy, drift. Sum to 1.
+
+
+@dataclasses.dataclass(frozen=True)
+class Thresholds:
+    """Selection thresholds of Eq. 3. energy may be scalar or per-client (N,)."""
+
+    health: Array
+    energy: Array
+    drift: Array
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerState:
+    """Carried across rounds by the scheduler.
+
+    prev_hist:    (N, V) previous-round empirical distributions (Eq. 2 input).
+    theta_e:      (N,) adaptive per-client energy thresholds (Eq. 10).
+    warm:         (N,) bool — container warm/cold state (Eq. 4).
+    last_used:    (N,) int32 — round index of last invocation.
+    energy_spent: (N,) cumulative Joules (sim units) per client.
+    round_index:  () int32.
+    """
+
+    prev_hist: Array
+    theta_e: Array
+    warm: Array
+    last_used: Array
+    energy_spent: Array
+    round_index: Array
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectionResult:
+    """Output of one scheduling decision (see ``repro.core.types``)."""
+
+    mask: Array
+    utility: Array
+    health: Array
+    drift: Array
+    order: Array
+    num_selected: Array
+
+
+def init_scheduler_state(
+    num_clients: int, hist_bins: int, theta_e0: float = 0.5, *, device=None
+) -> SchedulerState:
+    """Fresh scheduler state: uniform histograms, cold containers; on the
+    CUDA card unless ``device`` names another."""
+    device = resolve_device(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return SchedulerState(
+        prev_hist=torch.full((num_clients, hist_bins), 1.0 / hist_bins, **f32),
+        theta_e=torch.full((num_clients,), theta_e0, **f32),
+        warm=torch.zeros((num_clients,), dtype=torch.bool, device=device),
+        last_used=torch.full(
+            (num_clients,), -1, dtype=torch.int32, device=device
+        ),
+        energy_spent=torch.zeros((num_clients,), **f32),
+        round_index=torch.zeros((), dtype=torch.int32, device=device),
+    )

@@ -1,0 +1,118 @@
+"""EMNIST-like synthetic vision task, batched over clients (port of
+``repro/data/emnist_like.py``).
+
+Deterministic 28×28 "characters": each of the 62 classes is a smooth
+template (7×7 normals upsampled bilinearly, then tanh); samples are
+template + Gaussian pixel noise. Clients get Dirichlet non-IID label
+priors; drift re-draws a client's prior and permutes its labels (concept
+drift). Where the JAX functions take one ``client_id`` and a key, these
+take the draw provider and return all ``n`` clients at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+IMG = 28
+
+
+@dataclasses.dataclass(frozen=True)
+class EmnistLikeConfig:
+    num_classes: int = 62
+    dirichlet_alpha: float = 0.5
+    drift_period: int = 0
+    drift_fraction: float = 0.3
+    noise: float = 0.35
+    seed: int = 0
+
+
+def _templates(cfg: EmnistLikeConfig, draws) -> torch.Tensor:
+    """(K, 28, 28) smooth class templates.
+
+    ``F.interpolate(bilinear, align_corners=False)`` is the half-pixel
+    resampling of ``jax.image.resize(..., "bilinear")``; for upsampling
+    neither antialiases, and both clamp at the border.
+    """
+    coarse = draws.normal("templates", (cfg.num_classes, 7, 7))
+    up = F.interpolate(
+        coarse[:, None], size=(IMG, IMG), mode="bilinear",
+        align_corners=False, antialias=False,
+    )[:, 0]
+    return torch.tanh(up * 2.0)
+
+
+def _drift_epoch(cfg: EmnistLikeConfig, draws, n: int, round_idx: int):
+    """(epoch, flags): the drift epoch of ``round_idx`` and the (n,) bool
+    mask of clients drifted in it. A client's effective epoch is
+    ``epoch`` where flagged, else 0 (undrifted). ``flags`` is None when
+    no client can be drifted (drift off, or epoch 0)."""
+    if not cfg.drift_period:
+        return 0, None
+    epoch = int(round_idx) // cfg.drift_period
+    if epoch == 0:
+        return 0, None
+    return epoch, draws.bernoulli(
+        "drift.flags", cfg.drift_fraction, (n,), epoch=epoch
+    )
+
+
+def client_label_prior(cfg: EmnistLikeConfig, draws, n: int, round_idx: int):
+    """(n, K) label priors: Dirichlet draws keyed by (seed, client,
+    effective drift epoch), so every round of an epoch sees the same one."""
+    k = cfg.num_classes
+    prior0 = draws.dirichlet("prior", cfg.dirichlet_alpha, (n, k), epoch=0)
+    epoch, flags = _drift_epoch(cfg, draws, n, round_idx)
+    if flags is None:
+        return prior0
+    prior_e = draws.dirichlet("prior", cfg.dirichlet_alpha, (n, k), epoch=epoch)
+    return torch.where(flags[:, None], prior_e, prior0)
+
+
+def client_batch(
+    cfg: EmnistLikeConfig, draws, n: int, round_idx: int, batch: int,
+    templates: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (images (n, batch, 784) f32, labels (n, batch) int64).
+
+    Drifted clients see their labels permuted by the epoch's permutation
+    (concept drift, §IV.A), which is what Eq. 2's gate must detect."""
+    prior = client_label_prior(cfg, draws, n, round_idx)
+    labels = draws.categorical(
+        "client_batch.labels", torch.log(prior + 1e-9), batch, round=round_idx
+    )
+    noise = draws.normal(
+        "client_batch.noise", (n, batch, IMG * IMG), round=round_idx
+    )
+    temps = templates.reshape(cfg.num_classes, IMG * IMG)[labels]
+    imgs = temps + noise * cfg.noise
+    epoch, flags = _drift_epoch(cfg, draws, n, round_idx)
+    if flags is not None:
+        perm = draws.permutation("drift.perm", cfg.num_classes, epoch=epoch)
+        labels = torch.where(flags[:, None], perm[labels], labels)
+    return imgs.to(torch.float32), labels
+
+
+def client_histogram(cfg: EmnistLikeConfig, draws, n: int, round_idx: int):
+    """(n, K) exact OBSERVED label distributions — the Eq. 2 drift signal
+    (the drift permutation applied to the prior)."""
+    prior = client_label_prior(cfg, draws, n, round_idx)
+    epoch, flags = _drift_epoch(cfg, draws, n, round_idx)
+    if flags is None:
+        return prior
+    perm = draws.permutation("drift.perm", cfg.num_classes, epoch=epoch)
+    permuted = torch.zeros_like(prior)
+    permuted[:, perm] = prior
+    return torch.where(flags[:, None], permuted, prior)
+
+
+def eval_batch(
+    cfg: EmnistLikeConfig, draws, round_idx: int, batch: int,
+    templates: torch.Tensor,
+):
+    """IID test split (uniform labels): (images (batch, 784), labels)."""
+    labels = draws.randint("eval.labels", (batch,), cfg.num_classes, round=round_idx)
+    noise = draws.normal("eval.noise", (batch, IMG * IMG), round=round_idx)
+    temps = templates.reshape(cfg.num_classes, IMG * IMG)[labels]
+    return (temps + noise * cfg.noise).to(torch.float32), labels

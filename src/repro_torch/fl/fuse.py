@@ -1,0 +1,79 @@
+"""Fused (C, P) client-delta buffers — the delta pipeline's data layout
+(port of ``repro/fl/fuse.py``).
+
+Leaves are concatenated in ``jax.tree.flatten`` order (dict keys sorted:
+``[b, w]`` per layer), so the DP noise vector, the segment ids and the
+compression table land on the same columns as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import tree
+
+
+def fuse_clients(stacked):
+    """Concat every (C, ...)-stacked leaf into ONE (C, P) f32 buffer.
+
+    Returns the buffer and its inverse, which accepts an aggregated (P,)
+    vector or a still-stacked (C, P) buffer."""
+    flat = tree.leaves(stacked)
+    shapes = [tuple(x.shape[1:]) for x in flat]
+    dtypes = [x.dtype for x in flat]
+    sizes = [math.prod(s) for s in shapes]
+    cat = torch.cat(
+        [x.reshape(x.shape[0], -1).to(torch.float32) for x in flat], dim=1
+    )
+
+    def unfuse(vec):
+        parts = torch.split(vec, sizes, dim=-1)
+        return tree.unflatten(
+            stacked,
+            [p.reshape(p.shape[:-1] + s).to(dt)
+             for p, s, dt in zip(parts, shapes, dtypes)],
+        )
+
+    return cat, unfuse
+
+
+def fuse_vector(params):
+    """Concat an UNstacked parameter tree into one (P,) f32 vector, with
+    the inverse (split + reshape + cast back)."""
+    flat = tree.leaves(params)
+    shapes = [tuple(x.shape) for x in flat]
+    dtypes = [x.dtype for x in flat]
+    sizes = [math.prod(s) for s in shapes]
+    cat = torch.cat([x.reshape(-1).to(torch.float32) for x in flat])
+
+    def unfuse(vec):
+        parts = torch.split(vec, sizes)
+        return tree.unflatten(
+            params,
+            [p.reshape(s).to(dt) for p, s, dt in zip(parts, shapes, dtypes)],
+        )
+
+    return cat, unfuse
+
+
+def stacked_leaf_sizes(stacked) -> tuple[int, ...]:
+    """Segment lengths of ``fuse_clients(stacked)`` (client axis excluded)."""
+    return tuple(math.prod(x.shape[1:]) for x in tree.leaves(stacked))
+
+
+def segment_ids(sizes: tuple[int, ...], device) -> torch.Tensor:
+    """(P,) int32 leaf-segment id per fused-buffer column (``output_size``
+    given, so building it on the device reads nothing back)."""
+    return torch.repeat_interleave(
+        torch.arange(len(sizes), dtype=torch.int32, device=device),
+        torch.tensor(sizes, device=device),
+        output_size=sum(sizes),
+    )
+
+
+def fused_gaussian_noise(draws, std: float, sizes: tuple[int, ...], *, round: int):
+    """(P,) DP noise vector matching ``core.privacy.gaussian_mechanism``:
+    the same ``dp`` normals, leaf by leaf, times ``std``."""
+    z = draws.normal("dp", (sum(sizes),), segments=tuple(sizes), round=round)
+    return std * z

@@ -1,0 +1,461 @@
+"""Paper-scale FedFog simulator, dense synchronous mode (port of
+``repro/fl/simulator.py``).
+
+N edge clients train a small MLP on the EMNIST-like task under the full
+scheduler (Eqs. 1-12), the §IV.F latency / energy model and drift
+injection. All N clients are batched: their weights are stacked as
+(N, in, out) and trained with ``torch.bmm``.
+
+Two engines share ONE round function (``_round``):
+
+  * ``run()``         — per-round loop, metrics moved to the host each round.
+  * ``run_scanned()`` — the same rounds with the per-round metrics stacked
+                        on the device and moved to the host ONCE at the end.
+
+The round reads nothing back from the device (no ``.item()``, no
+``.cpu()``) and keeps static shapes: participation is a mask over the
+fixed client registry, never a gather.
+
+With ``use_pallas_agg=True`` the server side (Eq. 6 weighting or the
+median / trimmed selection, DP noise, apply) runs as the fused
+delta-pipeline kernel on CUDA tensors (``kernels.delta_pipeline``); on
+CPU tensors the same entry point runs its plain version.
+
+Random draws come from a draw provider (``repro_torch.random``); the
+configurations the port does not run yet raise ``NotImplementedError``
+naming the ROADMAP item that will port them.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch import tree
+from repro_torch.core import aggregation as agg_mod
+from repro_torch.core import privacy as privacy_mod
+from repro_torch.core.scheduler import SchedulerConfig, account_energy, schedule_round
+from repro_torch.core.selection import random_selection_mask, topk_mask
+from repro_torch.core.types import init_scheduler_state, static_on
+from repro_torch.data import emnist_like
+from repro_torch.data.telemetry import (
+    TelemetryConfig,
+    init_telemetry,
+    make_profiles,
+    step_telemetry,
+)
+from repro_torch.device import resolve_device
+from repro_torch.fl.compression import apply_compression, wire_bytes_per_param
+from repro_torch.fl.fuse import (
+    fuse_clients,
+    fuse_vector,
+    fused_gaussian_noise,
+    stacked_leaf_sizes,
+)
+from repro_torch.obs.history import finalize_history
+from repro_torch.optim import clip_by_global_norm
+from repro_torch.random import TorchDraws
+from repro_torch.sim.des import FaasSimConfig, RoundCostModel
+from repro_torch.sim.faults import inject as faults_inject
+
+_TODO = "not ported yet: see ROADMAP.md, queue 1, item 7 ({})"
+
+
+def _phase(name: str):
+    """A profiler range ``round.<name>`` around a phase of ``_round`` while
+    a profiler runs (read by ``repro_torch.tools.profile_round``); no range
+    otherwise, since a range costs the host a dispatcher call even when no
+    profiler records it."""
+    if torch.autograd._profiler_enabled():
+        return record_function(f"round.{name}")
+    return contextlib.nullcontext()
+
+
+# --------------------------------------------------------------------- #
+# Small model (MLP) for the edge tasks
+# --------------------------------------------------------------------- #
+def mlp_init(draws, sizes: tuple[int, ...]):
+    """He-normal weights from the ``init.mlp`` site, zero biases."""
+    params = []
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        z = draws.normal("init.mlp", (a, b), index=i)
+        params.append({"w": z * (2.0 / a) ** 0.5, "b": torch.zeros_like(z[0])})
+    return params
+
+
+def mlp_apply(params, x):
+    """``x @ w + b`` per layer, ReLU between layers. Leaves may carry a
+    leading client axis: (C, in, out) weights with (C, B, in) inputs."""
+    for i, layer in enumerate(params):
+        w, b = layer["w"], layer["b"]
+        if w.dim() == 3:
+            x = torch.bmm(x, w) + b[:, None, :]
+        else:
+            x = x @ w + b
+        if i < len(params) - 1:
+            x = F.relu(x)
+    return x
+
+
+def _ce_loss_sum(params, x, y):
+    """Σ over clients of each client's mean cross-entropy: the gradient
+    with respect to client c's weights is c's own mean-loss gradient."""
+    logp = torch.log_softmax(mlp_apply(params, x), dim=-1)
+    nll = -torch.gather(logp, -1, y[..., None])[..., 0]
+    return torch.sum(torch.mean(nll, dim=-1))
+
+
+# --------------------------------------------------------------------- #
+# Simulator
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class SimulatorConfig:
+    task: str = "emnist"  # "emnist" | "har"
+    num_clients: int = 64
+    rounds: int = 50
+    local_epochs: int = 3  # E in Eq. 5
+    local_batch: int = 32
+    lr: float = 0.05  # η in Eq. 5
+    policy: str = "fedfog"  # fedfog | rcs | fogfaas | vanilla
+    top_k: int | None = 24  # participation budget per round
+    scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    telemetry: TelemetryConfig | None = None
+    faas: FaasSimConfig = dataclasses.field(default_factory=FaasSimConfig)
+    drift_period: int = 0  # inject drift every k rounds (0 = off)
+    attack: str = "none"
+    attack_fraction: float = 0.0
+    attack_noise_scale: float = 0.05
+    attack_replacement_scale: float = 1.0
+    compression: str = "none"
+    dp_sigma: float = 0.0
+    clip_norm: float = 0.0
+    server_lr: float = 1.0
+    aggregator: str = "fedavg"  # "fedavg" | "median" | "trimmed"
+    trim_fraction: float = 0.1  # trimmed-mean tail fraction per side
+    # Route aggregation + DP noise + server apply through the fused
+    # delta-pipeline kernel (kernels.delta_pipeline): one pass over the
+    # fused (N, P) delta buffer. The name is the JAX package's.
+    use_pallas_agg: bool = False
+    population: int | None = None
+    fog_nodes: int = 1
+    faults: Any = None
+    hidden: tuple[int, ...] = (128, 64)
+    seed: int = 0
+
+    def data_cfg(self):
+        if self.task != "emnist":
+            raise NotImplementedError(_TODO.format(f"task={self.task!r}"))
+        return emnist_like.EmnistLikeConfig(
+            drift_period=self.drift_period, seed=self.seed
+        )
+
+    def dims(self):
+        if self.task != "emnist":
+            raise NotImplementedError(_TODO.format(f"task={self.task!r}"))
+        return 28 * 28, 62
+
+
+def _check_supported(cfg: SimulatorConfig, tap) -> None:
+    if cfg.attack not in ("none", "label_flip"):
+        raise NotImplementedError(_TODO.format(f"attack={cfg.attack!r}"))
+    if cfg.population not in (None, cfg.num_clients):
+        raise NotImplementedError(_TODO.format("population / cohort mode"))
+    if cfg.fog_nodes > 1:
+        raise NotImplementedError(_TODO.format("fog_nodes > 1"))
+    if cfg.faults is not None:
+        raise NotImplementedError(_TODO.format("faults"))
+    if tap is not None:
+        raise NotImplementedError(_TODO.format("metric taps"))
+    if cfg.aggregator not in ("fedavg", "median", "trimmed"):
+        raise ValueError(f"unknown aggregator {cfg.aggregator!r}")
+
+
+class FedFogSimulator:
+    def __init__(
+        self, cfg: SimulatorConfig, *, device: str | torch.device | None = None,
+        draws=None, defer_state: bool = False, tap=None,
+    ):
+        """``device`` defaults to CUDA (raises without one); pass "cpu"
+        to run on the CPU. ``draws`` is the draw provider, by default the
+        production :class:`repro_torch.random.TorchDraws` seeded from
+        ``cfg.seed``. ``defer_state`` skips the eager state build."""
+        _check_supported(cfg, tap)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.draws = draws if draws is not None else TorchDraws(cfg.seed, self.device)
+        self.data_cfg = cfg.data_cfg()
+        in_dim, n_cls = cfg.dims()
+        self.num_classes = n_cls
+        self.sizes = (in_dim,) + tuple(cfg.hidden) + (n_cls,)
+        self.tel_cfg = cfg.telemetry or TelemetryConfig(
+            num_clients=cfg.num_clients, seed=cfg.seed
+        )
+        if self.tel_cfg.num_clients != cfg.num_clients:
+            raise ValueError(
+                f"telemetry.num_clients={self.tel_cfg.num_clients} must "
+                f"match the population size {cfg.num_clients}"
+            )
+        self.n_mal = int(round(cfg.attack_fraction * cfg.num_clients))
+        self.cost_model = RoundCostModel(cfg.faas)
+        self.n_params = sum(a * b + b for a, b in zip(self.sizes[:-1], self.sizes[1:]))
+        # Matrix products in full float32, as JAX computes them on the CPU
+        # (the defaults of recent PyTorch; stated here because the parity
+        # with the JAX package depends on them).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self._templates = emnist_like._templates(self.data_cfg, self.draws)
+        self.env = self.params = self.sched_state = self.telemetry = None
+        if not defer_state:
+            self._ensure_state()
+
+    def _ensure_state(self):
+        if self.env is None:
+            env, params, sched, tel = self.init_state(self.cfg.seed)
+            self.env = env
+            self.params, self.sched_state, self.telemetry = params, sched, tel
+
+    @property
+    def profiles(self):
+        return None if self.env is None else self.env["profiles"]
+
+    # ------------------------------------------------------------------ #
+    def init_state(self, seed: int):
+        """State init: (env, params, sched_state, telemetry), drawn from
+        the provider (whose seed is ``seed``)."""
+        cfg, draws, n = self.cfg, self.draws, self.cfg.num_clients
+        if int(seed) != getattr(draws, "seed", int(seed)):
+            raise ValueError(f"seed={seed} differs from the provider's {draws.seed}")
+        with torch.no_grad():
+            params = mlp_init(draws, self.sizes)
+            profiles = make_profiles(self.tel_cfg, draws)
+            telemetry = init_telemetry(self.tel_cfg, draws)
+            sched = init_scheduler_state(
+                n, self.num_classes, cfg.scheduler.theta_e, device=self.device
+            )
+            # Bootstrap the drift reference with the true round-0
+            # distributions, otherwise round 0 flags every client.
+            sched = dataclasses.replace(
+                sched, prev_hist=self._histograms(self.data_cfg, 0)
+            )
+            data_sizes = torch.exp(
+                draws.normal("data_sizes", (n,)) * 0.5
+                + torch.log(torch.tensor(300.0, device=self.device))
+            )
+            perm = draws.permutation("malicious", n)
+            malicious = (torch.arange(n, device=self.device) < self.n_mal)[perm]
+        env = {
+            "profiles": profiles,
+            "data_sizes": data_sizes,
+            "malicious": malicious,
+            "data_seed": int(seed),
+        }
+        return env, params, sched, telemetry
+
+    # ------------------------------------------------------------------ #
+    def _histograms(self, data_cfg, round_idx: int):
+        return emnist_like.client_histogram(
+            data_cfg, self.draws, self.cfg.num_clients, round_idx
+        )
+
+    def _participation(self, decision, telemetry, round_idx: int):
+        cfg = self.cfg
+        if cfg.policy == "fedfog":
+            mask = decision.selection.mask
+            if cfg.top_k is not None:
+                mask = topk_mask(decision.selection.utility, mask, cfg.top_k)
+        elif cfg.policy == "rcs":
+            k = cfg.top_k if cfg.top_k is not None else cfg.num_clients
+            perm = self.draws.permutation("rcs.perm", cfg.num_clients, round=round_idx)
+            mask = random_selection_mask(perm, k)
+        else:  # fogfaas / vanilla: everyone alive participates
+            mask = telemetry.batt > 0.05
+        return mask
+
+    def _local_deltas(self, data_cfg, params, round_idx: int, mask, malicious):
+        """E local epochs of SGD on every client at once (Eq. 5), then
+        clip and compression. Returns ``(deltas, mask)``: deltas is the
+        params tree with a leading client axis."""
+        cfg, n = self.cfg, self.cfg.num_clients
+        e, b = cfg.local_epochs, cfg.local_batch
+        x, y = emnist_like.client_batch(
+            data_cfg, self.draws, n, round_idx, b * e, self._templates
+        )
+        if cfg.attack == "label_flip":
+            y = torch.where(malicious[:, None], (self.num_classes - 1) - y, y)
+        xs = x.reshape(n, e, b, -1)
+        ys = y.reshape(n, e, b)
+        start = tree.map(lambda p: p.expand((n,) + tuple(p.shape)), params)
+        cur = start
+        for ep in range(e):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(True) for t in tree.leaves(cur)]
+                p = tree.unflatten(cur, leaves)
+                loss = _ce_loss_sum(p, xs[:, ep], ys[:, ep])
+                grads = torch.autograd.grad(loss, leaves)
+            cur = tree.unflatten(
+                cur, [w.detach() - cfg.lr * g for w, g in zip(leaves, grads)]
+            )
+        deltas = tree.map(lambda a, s: a - s, cur, start)
+        if cfg.clip_norm > 0:
+            deltas, _ = clip_by_global_norm(deltas, cfg.clip_norm, per_client=True)
+        deltas = apply_compression(deltas, cfg.compression)
+        return deltas, mask
+
+    def _round_workload(self):
+        """(workload_flops, upload_bytes, download_bytes) per client-round."""
+        cfg = self.cfg
+        workload = 6.0 * self.n_params * cfg.local_batch * cfg.local_epochs
+        up_bytes = wire_bytes_per_param(cfg.compression) * self.n_params
+        return workload, up_bytes, 2.0 * self.n_params
+
+    def _eval_accuracy(self, data_cfg, params, round_idx: int):
+        """Held-out accuracy on a 512-sample eval batch."""
+        x, y = emnist_like.eval_batch(
+            data_cfg, self.draws, round_idx, 512, self._templates
+        )
+        logits = mlp_apply(params, x)
+        return torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
+
+    # ------------------------------------------------------------------ #
+    def _apply_deltas(self, params, deltas, mask, data_sizes, round_idx: int):
+        """Aggregate the client deltas and apply the server update."""
+        cfg = self.cfg
+        if cfg.use_pallas_agg:
+            # Fused delta pipeline: Eq. 6 weighting (or the median /
+            # trimmed selection) + DP noise + apply in ONE pass over the
+            # fused (N, P) buffer; clip/compression already happened in
+            # _local_deltas. The DP noise is the reference path's draws.
+            from repro_torch.kernels.delta_pipeline import delta_pipeline_apply
+
+            cat_d, _ = fuse_clients(deltas)
+            base_flat, unfuse_vec = fuse_vector(params)
+            noise = None
+            if static_on(cfg.dp_sigma):
+                noise = fused_gaussian_noise(
+                    self.draws, cfg.dp_sigma * (cfg.clip_norm or 1.0),
+                    stacked_leaf_sizes(deltas), round=round_idx,
+                )
+            new_flat = delta_pipeline_apply(
+                cat_d, base_flat, mask, data_sizes,
+                lr=cfg.server_lr, dp_noise=noise,
+                trim_fraction=cfg.trim_fraction, aggregator=cfg.aggregator,
+            )
+            return unfuse_vec(new_flat)
+        if cfg.aggregator == "median":
+            agg = agg_mod.median_aggregate(deltas, mask)
+        elif cfg.aggregator == "trimmed":
+            agg = agg_mod.trimmed_mean_aggregate(deltas, mask, cfg.trim_fraction)
+        else:
+            agg = agg_mod.fedavg_stacked(deltas, mask, data_sizes)
+        if static_on(cfg.dp_sigma):
+            agg = privacy_mod.gaussian_mechanism(
+                agg, self.draws,
+                privacy_mod.DPConfig(
+                    sigma=cfg.dp_sigma, sensitivity=cfg.clip_norm or 1.0
+                ),
+                round=round_idx,
+            )
+        return tree.map(lambda p, a: p + cfg.server_lr * a, params, agg)
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def _round(self, env, params, sched_state, telemetry, round_idx: int):
+        """One synchronous FL round: a pure function of its arguments and
+        of the provider's draws keyed by ``round_idx``."""
+        cfg = self.cfg
+        data_cfg = dataclasses.replace(self.data_cfg, seed=env["data_seed"])
+        malicious = env["malicious"]
+
+        with _phase("schedule"):
+            hist = self._histograms(data_cfg, round_idx)
+            decision = schedule_round(sched_state, telemetry, hist, cfg.scheduler)
+            mask = self._participation(decision, telemetry, round_idx)
+        with _phase("local_sgd"):
+            deltas, mask = self._local_deltas(
+                data_cfg, params, round_idx, mask, malicious
+            )
+
+        # --- DES: latency + energy (§IV.F, shared RoundCostModel) ----- #
+        with _phase("costs"):
+            workload, up_bytes, down_bytes = self._round_workload()
+            warm = sched_state.warm
+            if cfg.policy in ("fogfaas",):
+                warm = torch.zeros_like(warm)  # naive platform: no keep-alive
+            costs = self.cost_model.round_costs(
+                env["profiles"], mask, warm, workload, up_bytes, down_bytes,
+                policy="fedfog" if cfg.policy in ("fedfog", "rcs", "vanilla")
+                else "fogfaas",
+            )
+            counters = faults_inject.zero_counters(self.device)
+            energy_j = costs.energy_j
+
+        with _phase("server"):
+            new_params = self._apply_deltas(
+                params, deltas, mask, env["data_sizes"], round_idx
+            )
+        with _phase("telemetry"):
+            new_sched = account_energy(decision.new_state, energy_j, cfg.scheduler)
+            new_tel = step_telemetry(
+                self.tel_cfg, telemetry, mask, energy_j, env["profiles"],
+                self.draws, round=round_idx,
+            )
+        with _phase("eval"):
+            acc = self._eval_accuracy(data_cfg, new_params, round_idx)
+        metrics = {
+            "accuracy": acc,
+            "num_selected": torch.sum(mask.to(torch.int32)),
+            "round_latency_ms": costs.round_ms,
+            "orchestration_ms": costs.orchestration_ms,
+            "energy_j": torch.sum(energy_j),
+            "cold_starts": costs.cold_starts,
+            "mean_drift": torch.mean(decision.selection.drift),
+            "mean_utility": torch.mean(decision.selection.utility),
+            "mean_battery": torch.mean(new_tel.batt),
+            **counters,
+        }
+        return new_params, new_sched, new_tel, metrics
+
+    # ------------------------------------------------------------------ #
+    def run(self, rounds: int | None = None) -> dict[str, Any]:
+        """Per-round loop (debug/streaming path): one metrics transfer to
+        the host per round."""
+        rounds = rounds or self.cfg.rounds
+        self._ensure_state()
+        history: dict[str, list] = {}
+        params, sched, tel = self.params, self.sched_state, self.telemetry
+        for r in range(rounds):
+            params, sched, tel, metrics = self._round(self.env, params, sched, tel, r)
+            for name, v in metrics.items():
+                history.setdefault(name, []).append(float(v))
+        self.params, self.sched_state, self.telemetry = params, sched, tel
+        return finalize_history(history, rounds=rounds)
+
+    def run_scanned(self, rounds: int | None = None) -> dict[str, Any]:
+        """All rounds with the per-round metrics stacked on the device and
+        transferred to the host once at the end. Same round function and
+        draws as ``run()``, so the histories agree."""
+        rounds = int(rounds or self.cfg.rounds)
+        self._ensure_state()
+        params, sched, tel = self.params, self.sched_state, self.telemetry
+        per_round = []
+        for r in range(rounds):
+            params, sched, tel, metrics = self._round(self.env, params, sched, tel, r)
+            per_round.append(metrics)
+        self.params, self.sched_state, self.telemetry = params, sched, tel
+        names = list(per_round[0]) if per_round else []
+        stacked = torch.stack(
+            [torch.stack([m[k].to(torch.float64) for k in names]) for m in per_round]
+        ) if per_round else torch.zeros((0, 0))
+        host = stacked.cpu().tolist()  # the single device -> host transfer
+        history = {k: [row[i] for row in host] for i, k in enumerate(names)}
+        return finalize_history(history, rounds=rounds)
+
+    def aot_scanned(self, rounds: int | None = None):
+        raise NotImplementedError(_TODO.format("aot_scanned / run_scanned_with"))
+
+    def run_scanned_with(self, compiled, rounds: int | None = None):
+        raise NotImplementedError(_TODO.format("aot_scanned / run_scanned_with"))

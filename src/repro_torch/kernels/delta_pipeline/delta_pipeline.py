@@ -1,0 +1,279 @@
+"""CUDA wrappers of the fused delta pipeline (port of
+``repro/kernels/delta_pipeline/delta_pipeline.py``).
+
+``delta_sq_norms_cuda`` launches K2 (per-client Σx², the clip reduction)
+and ``delta_pipeline_apply_cuda`` launches K3 (clip pre-scale →
+compression emulation → Eq. 6 weighted sum or masked median / trimmed
+mean → DP noise → server momentum → apply) from
+``csrc/delta_pipeline.cu``. As in the JAX wrapper, the per-client rows
+(Eq. 6 weights with the optional staleness discount and damping, the
+``[num_sel, k_trim]`` pair, the clip scales) and the (C, L) compression
+table (:func:`segment_table`) are computed outside the kernel with
+torch ops, on the device, with no host synchronisation.
+
+Each wrapper takes CUDA tensors only, checks device, dtype, shape and
+contiguity, allocates its outputs with ``torch.empty``, launches on the
+current stream and raises if the launch is refused. Launches are counted
+in plain integer attributes, ``delta_sq_norms_cuda.launches`` (K2) and
+``launch_pipeline.launches`` (K3), which grow by one per launch.
+``ops.py`` sends CPU tensors to the plain versions in ``ref.py`` instead.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.fl.fuse import segment_ids
+from repro_torch.kernels._build import load_library
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "delta_pipeline.cu"
+_EPS = 1e-12  # matches core.aggregation._EPS
+_COMPRESSION = {"none": 0, "int8": 1, "topk": 2}
+_AGGREGATOR = {"fedavg": 0, "median": 1, "trimmed": 2}
+_OPTIMIZER = {"fedavg": 0, "fedavgm": 1, "fedadam": 2}
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+@functools.cache
+def library():
+    """Build (first use) and load the kernels; returns the KernelLibrary.
+    Cached: the source hash is taken once, not on every launch."""
+    kl = load_library("fedfog_delta_pipeline", [SOURCE])
+    kl.lib.fedfog_delta_sq_norms.argtypes = [_P, _P, _I, _LL, _P]
+    kl.lib.fedfog_delta_sq_norms.restype = _I
+    kl.lib.fedfog_delta_pipeline.argtypes = (
+        [_P] * 11 + [_I, _I, _LL, _F, _F, _I, _I, _I, _P]
+    )
+    kl.lib.fedfog_delta_pipeline.restype = _I
+    return kl
+
+
+def _check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what}: launch failed (code {rc})")
+
+
+def delta_sq_norms_cuda(updates: torch.Tensor) -> torch.Tensor:
+    """K2: per-client Σx² over the fused (C, P) delta buffer -> (C,) f32."""
+    if updates.dim() != 2:
+        raise ValueError(f"updates must be (C, P), got {tuple(updates.shape)}")
+    c, p = updates.shape
+    _check(updates, "updates", (c, p))
+    out = torch.empty((c,), dtype=torch.float32, device=updates.device)
+    lib = library().lib
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        _raise_on(
+            lib.fedfog_delta_sq_norms(updates.data_ptr(), out.data_ptr(), c, p, stream),
+            "delta_sq_norms",
+        )
+    delta_sq_norms_cuda.launches += 1
+    return out
+
+
+delta_sq_norms_cuda.launches = 0
+
+
+def segment_table(updates, compression, topk_fraction, seg_sizes, pre=None):
+    """(C, L) compression table: int8 dequant scales or top-k thresholds.
+
+    The single definition of the per-(client, leaf) reduction, shared by
+    ``fl.compression.apply_compression`` and the kernel wrapper. int8:
+    ``max|x|/127 + 1e-12`` per leaf by a segment scatter-max; top-k: the
+    kth-largest |x| per leaf (``torch.topk`` on static leaf slices).
+    ``pre`` (C,) positive clip scales rescale a table computed on the raw
+    deltas, as in the JAX wrapper.
+    """
+    c = updates.shape[0]
+    if compression == "int8":
+        seg = segment_ids(seg_sizes, updates.device).to(torch.int64)
+        tab = torch.zeros(
+            (c, len(seg_sizes)), dtype=torch.float32, device=updates.device
+        ).scatter_reduce(
+            1, seg.expand(c, -1), torch.abs(updates), "amax", include_self=True
+        )
+        if pre is not None:
+            tab = tab * pre[:, None]
+        return tab / 127.0 + 1e-12
+    cols, off = [], 0
+    for sz in seg_sizes:
+        k = max(1, int(sz * topk_fraction))
+        sl = torch.abs(updates[:, off:off + sz])
+        cols.append(torch.topk(sl, k, dim=1).values[:, -1:])
+        off += sz
+    tab = torch.cat(cols, dim=1)
+    if pre is not None:
+        tab = tab * pre[:, None]
+    return tab
+
+
+def validate(updates, compression, seg_sizes, aggregator, staleness):
+    """The JAX wrapper's argument checks, shared with the plain version."""
+    if compression not in _COMPRESSION:
+        raise ValueError(f"unknown compression {compression!r}")
+    if compression != "none" and seg_sizes is None:
+        raise ValueError("compression requires seg_sizes (fused leaf sizes)")
+    if compression != "none" and int(sum(seg_sizes)) != updates.shape[1]:
+        raise ValueError(f"seg_sizes sum {sum(seg_sizes)} != P {updates.shape[1]}")
+    if aggregator not in _AGGREGATOR:
+        raise ValueError(f"unknown aggregator {aggregator!r}")
+    if aggregator != "fedavg" and staleness is not None:
+        raise ValueError(
+            f"aggregator={aggregator!r} is unweighted; staleness weighting "
+            "does not compose with it"
+        )
+
+
+def pipeline_rows(
+    updates, mask, weights, staleness, staleness_exponent, trim_fraction,
+    *, clip_norm, compression, topk_fraction, seg_sizes, aggregator,
+    sq_norms=delta_sq_norms_cuda,
+):
+    """The per-client rows and the compression table K3 reads, computed
+    with torch ops as the JAX wrapper computes them outside Pallas.
+
+    Returns ``(wn, cnt, pre, seg, tab)``: (C,) Eq. 6 weights (or the 0/1
+    mask for the robust aggregators), the (2,) int32 ``[num_sel, k_trim]``
+    pair (robust only), (C,) clip scales, (P,) int32 leaf ids and the
+    (C, L) table (compression only). ``sq_norms`` is the K2 launcher; the
+    CPU tests pass its plain version.
+    """
+    dev = updates.device
+    cnt = None
+    if aggregator in ("median", "trimmed"):
+        wn = mask.to(torch.float32)
+        num_sel = torch.sum(mask.to(torch.int32))
+        k_trim = torch.floor(
+            num_sel.to(torch.float32)
+            * torch.as_tensor(trim_fraction, dtype=torch.float32, device=dev)
+        ).to(torch.int32)
+        cnt = torch.stack([num_sel, k_trim]).to(torch.int32)
+    else:
+        m = mask.to(torch.float32) * weights.to(torch.float32)
+        if staleness is not None:
+            # (1+s)^-a discount + global damping (the async_aggregate rule,
+            # equal to plain Eq. 6 at zero staleness).
+            s = torch.clamp(staleness.to(torch.float32), min=0.0)
+            disc = (1.0 + s) ** (
+                -torch.as_tensor(staleness_exponent, dtype=torch.float32, device=dev)
+            )
+            dm = m * disc
+            wn = dm / (torch.sum(dm) + _EPS)
+            wn = wn * ((torch.sum(dm) + _EPS) / (torch.sum(m) + _EPS))
+        else:
+            wn = m / (torch.sum(m) + _EPS)
+    pre = None
+    if clip_norm and clip_norm > 0:
+        norm = torch.sqrt(sq_norms(updates))
+        limit = torch.tensor(clip_norm, dtype=torch.float32, device=dev)
+        pre = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
+    seg = tab = None
+    if compression != "none":
+        seg = segment_ids(seg_sizes, dev)
+        tab = segment_table(updates, compression, topk_fraction, seg_sizes, pre=pre)
+    return wn, cnt, pre, seg, tab
+
+
+def delta_pipeline_apply_cuda(
+    updates: torch.Tensor,  # (C, P) fused client deltas
+    base: torch.Tensor,  # (P,) fused global model
+    mask: torch.Tensor,  # (C,) bool participation
+    weights: torch.Tensor,  # (C,) |D_i| dataset sizes
+    lr: float = 1.0,
+    staleness: torch.Tensor | None = None,
+    staleness_exponent: float = 0.0,
+    dp_noise: torch.Tensor | None = None,
+    momentum: torch.Tensor | None = None,
+    trim_fraction: float = 0.1,
+    *,
+    clip_norm: float = 0.0,
+    compression: str = "none",
+    topk_fraction: float = 0.05,
+    seg_sizes: tuple[int, ...] | None = None,
+    server_optimizer: str = "fedavg",
+    server_momentum: float = 0.9,
+    aggregator: str = "fedavg",
+):
+    """K3: one pass over the (C, P) buffer. Returns the updated (P,) model,
+    or ``(model, new_mu)`` when ``momentum`` is given with a momentum
+    server optimizer. Same gates and semantics as the JAX function."""
+    if updates.dim() != 2:
+        raise ValueError(f"updates must be (C, P), got {tuple(updates.shape)}")
+    c, p = updates.shape
+    validate(updates, compression, seg_sizes, aggregator, staleness)
+    if aggregator != "fedavg" and c > 256:
+        raise ValueError(f"median / trimmed support C <= 256 clients, got {c}")
+    if c > 4096:
+        raise ValueError(f"the kernel supports C <= 4096 clients, got {c}")
+    if server_optimizer not in _OPTIMIZER:
+        raise ValueError(f"unknown server_optimizer {server_optimizer!r}")
+    _check(updates, "updates", (c, p))
+    _check(base, "base", (p,))
+    _check(mask, "mask", (c,), torch.bool)
+    _check(weights, "weights", (c,))
+    has_mu = momentum is not None and server_optimizer in ("fedavgm", "fedadam")
+    if dp_noise is not None:
+        _check(dp_noise, "dp_noise", (p,))
+    if has_mu:
+        _check(momentum, "momentum", (p,))
+    if staleness is not None:
+        _check(staleness, "staleness", (c,), staleness.dtype)
+    wn, cnt, pre, seg, tab = pipeline_rows(
+        updates, mask, weights, staleness, staleness_exponent, trim_fraction,
+        clip_norm=clip_norm, compression=compression,
+        topk_fraction=topk_fraction, seg_sizes=seg_sizes, aggregator=aggregator,
+    )
+    out = torch.empty_like(base)
+    new_mu = torch.empty_like(momentum) if has_mu else None
+    launch_pipeline(
+        updates, base, wn, cnt, pre, seg, tab, dp_noise,
+        momentum if has_mu else None, out, new_mu,
+        lr=lr, server_momentum=server_momentum, compression=compression,
+        aggregator=aggregator,
+        server_optimizer=server_optimizer if has_mu else "fedavg",
+    )
+    return (out, new_mu) if has_mu else out
+
+
+def launch_pipeline(
+    updates, base, wn, cnt, pre, seg, tab, noise, mu, out, new_mu, *,
+    lr, server_momentum, compression, aggregator, server_optimizer,
+):
+    """Launch K3 on prepared rows (see :func:`pipeline_rows`) into the
+    caller's ``out`` / ``new_mu``. The one place K3 is launched, and so the
+    one place its ``launches`` count grows."""
+    c, p = updates.shape
+    n_leaves = tab.shape[1] if tab is not None else 0
+    lib = library().lib
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        rc = lib.fedfog_delta_pipeline(
+            updates.data_ptr(), base.data_ptr(), wn.data_ptr(), _ptr(cnt),
+            _ptr(pre), _ptr(seg), _ptr(tab), _ptr(noise), _ptr(mu),
+            out.data_ptr(), _ptr(new_mu), c, n_leaves, p, float(lr),
+            float(server_momentum), _COMPRESSION[compression],
+            _AGGREGATOR[aggregator], _OPTIMIZER[server_optimizer], stream,
+        )
+    _raise_on(rc, "delta_pipeline_apply")
+    launch_pipeline.launches += 1
+
+
+launch_pipeline.launches = 0

@@ -1,0 +1,123 @@
+"""Where one round of the port's main path spends its time on the card.
+
+    PYTHONPATH=src python3 -m repro_torch.tools.profile_round [--rounds 10]
+
+Builds ``FedFogSimulator(SimulatorConfig(use_pallas_agg=True))`` on CUDA
+at the default (64-client, 112,766-parameter) configuration, runs two
+warm-up rounds, then measures passes of ``--rounds`` rounds:
+
+  * three unprofiled passes: the host clock around each pass, ending in a
+    synchronise (three, so the host's spread within one call shows);
+  * one pass under ``torch.profiler``: device kernel time per round, the
+    device's busy share (kernel time over the profiled wall time), kernel
+    launches per round, the kernels that take the most device time, and,
+    per phase of ``_round`` (its ``round.<phase>`` ranges: schedule,
+    local_sgd, costs, server — the fused delta pipeline —, telemetry,
+    eval), the host time spent in the range and the device kernel time it
+    launched.
+
+Also reports what one phase guard of ``_round`` costs the host with no
+profiler running (it then opens no range; six guards run per round).
+Prints one JSON object of means per round. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+PHASE_PREFIX = "round."
+
+
+def _wall_ms(sim, state, rounds):
+    t0 = time.perf_counter()
+    for r in rounds:
+        state = sim._round(sim.env, *state, r)[:3]
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) / len(rounds) * 1e3
+
+
+def _kernel_profile(sim, state, rounds, top):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, wall_ms = _wall_ms(sim, state, rounds)
+    n = len(rounds)
+    kernels: dict[str, list[float]] = {}
+    phases: dict[str, dict[str, float]] = {}
+    for e in prof.events():
+        if e.name.startswith(PHASE_PREFIX):
+            ph = phases.setdefault(e.name[len(PHASE_PREFIX):], {})
+            if e.device_type == DeviceType.CUDA:  # the range as seen on the device
+                parts = {"device_span_ms": e.device_time_total}
+            else:
+                parts = {"host_ms": e.cpu_time_total, "kernel_ms": e.device_time_total}
+            for k, us in parts.items():
+                ph[k] = ph.get(k, 0.0) + us / 1e3 / n
+        elif e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            kernels.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    device_ms = sum(sum(v) for v in kernels.values()) / n
+    ranked = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:top]
+    k3 = sum(sum(v) for k, v in kernels.items() if "fedavg_kernel" in k) / n
+    measured = bool(kernels)
+    return state, {
+        "profiled_wall_ms_per_round": wall_ms,
+        "device_kernel_ms_per_round": device_ms if measured else "not measured",
+        "device_busy_share": device_ms / wall_ms if measured else "not measured",
+        "kernel_launches_per_round": sum(len(v) for v in kernels.values()) / n,
+        "delta_pipeline_kernel_ms_per_round": k3 if measured else "not measured",
+        "phases_per_round": phases or "not measured",
+        "top_kernels": [
+            {"name": k[:90], "ms_per_round": sum(v) / n, "calls_per_round": len(v) / n}
+            for k, v in ranked
+        ],
+    }
+
+
+def _phase_guard_us(n=10_000):
+    from repro_torch.fl.simulator import _phase
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with _phase("empty"):
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_round: needs a CUDA device")
+
+    from repro_torch.fl.simulator import FedFogSimulator, SimulatorConfig
+
+    n = args.rounds
+    sim = FedFogSimulator(
+        SimulatorConfig(rounds=2 + 4 * n, use_pallas_agg=True), device="cuda"
+    )
+    state = (sim.params, sim.sched_state, sim.telemetry)
+    state, _ = _wall_ms(sim, state, range(2))  # warm-up
+    wall_ms = []
+    for i in range(3):
+        state, ms = _wall_ms(sim, state, range(2 + i * n, 2 + (i + 1) * n))
+        wall_ms.append(ms)
+    state, prof = _kernel_profile(sim, state, range(2 + 3 * n, 2 + 4 * n), args.top)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "rounds": n,
+        "wall_ms_per_round_by_pass": wall_ms,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "phase_guard_us_unprofiled": _phase_guard_us(),
+        **prof,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,162 @@
+"""Test draw provider: hands the port the JAX package's own random draws.
+
+``repro_torch`` takes every random draw from a provider by call-site name
+(see ``repro_torch/random.py``). This provider recomputes each block with
+``jax.random`` along the key chain the JAX package uses, so the port and
+the JAX package can be held against each other on identical data:
+
+  * state init: ``PRNGKey(seed)`` (MLP, split per layer), ``seed + 10``
+    (templates), ``+ 11`` / ``+ 12`` / ``+ 13`` (drift flags, Dirichlet
+    priors, drift permutation), ``+ 30`` / ``+ 31`` (profiles, telemetry),
+    ``+ 40`` / ``+ 41`` (data sizes, attacker placement);
+  * per round: ``PRNGKey(seed + 100)`` split once per round, then the
+    6-way split ``(sel, data, attack, dp, tel, eval)``; client ``c``'s
+    batch uses ``split(k_data, n)[c]`` → ``split(fold_in(., c))``.
+
+Blocks come back as CPU torch tensors.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+_ROUND_KEYS = ("sel", "data", "attack", "dp", "tel", "eval")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+@functools.partial(jax.jit, static_argnames=("n_draw",))
+def _client_labels(k_data, logits, n_draw):
+    n = logits.shape[0]
+
+    def one(key, cid, lg):
+        k1, _ = jax.random.split(jax.random.fold_in(key, cid))
+        return jax.random.categorical(k1, lg, shape=(n_draw,))
+
+    return jax.vmap(one)(jax.random.split(k_data, n), jnp.arange(n), logits)
+
+
+@functools.partial(jax.jit, static_argnames=("n", "n_draw", "dim"))
+def _client_noise(k_data, n, n_draw, dim):
+    def one(key, cid):
+        _, k2 = jax.random.split(jax.random.fold_in(key, cid))
+        return jax.random.normal(k2, (n_draw, 28, 28)).reshape(n_draw, dim)
+
+    return jax.vmap(one)(jax.random.split(k_data, n), jnp.arange(n))
+
+
+@functools.partial(jax.jit, static_argnames=("n", "k"))
+def _priors(seed, epoch, alpha, n, k):
+    def one(c):
+        key = jax.random.fold_in(
+            jax.random.fold_in(jax.random.PRNGKey(seed + 12), c), epoch
+        )
+        return jax.random.dirichlet(key, jnp.full((k,), alpha))
+
+    return jax.vmap(one)(jnp.arange(n))
+
+
+class JaxDraws:
+    """Draw provider replaying ``jax.random`` along the JAX package's keys."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+        self.device = torch.device("cpu")
+        self._rounds: dict[int, dict] = {}
+
+    def round_key(self, r: int, name: str):
+        if r not in self._rounds:
+            key = jax.random.PRNGKey(self.seed + 100)
+            for _ in range(r + 1):
+                key, k = jax.random.split(key)
+            self._rounds[r] = dict(zip(_ROUND_KEYS, jax.random.split(k, 6)))
+        return self._rounds[r][name]
+
+    def _init_key(self, offset: int, index: int | None = None, parts: int = 0):
+        key = jax.random.PRNGKey(self.seed + offset)
+        return key if index is None else jax.random.split(key, parts)[index]
+
+    # ------------------------------------------------------------------ #
+    def normal(self, site, shape, *, segments=None, round=None, index=None,
+               epoch=None):
+        shape = tuple(shape)
+        if site == "init.mlp":
+            key = jax.random.PRNGKey(self.seed)
+            for _ in range(index + 1):
+                k1, key = jax.random.split(key)
+            return _t(jax.random.normal(k1, shape))
+        offsets = {"templates": 10, "data_sizes": 40}
+        if site in offsets:
+            return _t(jax.random.normal(self._init_key(offsets[site]), shape))
+        profiles = {"profiles.mips": 1, "profiles.bw_up": 2, "profiles.rtt": 3}
+        if site in profiles:
+            return _t(jax.random.normal(self._init_key(30, profiles[site], 5), shape))
+        if site == "client_batch.noise":
+            n, n_draw, dim = shape
+            return _t(_client_noise(self.round_key(round, "data"), n, n_draw, dim))
+        if site == "eval.noise":
+            _, k2 = jax.random.split(self.round_key(round, "eval"))
+            b, dim = shape
+            return _t(jax.random.normal(k2, (b, 28, 28)).reshape(b, dim))
+        if site == "telemetry.ar":
+            k1, k2 = jax.random.split(self.round_key(round, "tel"))
+            n = shape[1]
+            return _t(jnp.stack([jax.random.normal(k1, (n,)),
+                                 jax.random.normal(k2, (n,))]))
+        if site == "dp":
+            keys = jax.random.split(self.round_key(round, "dp"), len(segments))
+            return _t(jnp.concatenate(
+                [jax.random.normal(k, (s,)) for k, s in zip(keys, segments)]
+            ))
+        raise KeyError(site)
+
+    def uniform(self, site, shape, lo, hi, **ctx):
+        index = {"telemetry.init.cpu": 0, "telemetry.init.mem": 1,
+                 "telemetry.init.batt": 2}[site]
+        return _t(jax.random.uniform(
+            self._init_key(31, index, 4), tuple(shape), minval=lo, maxval=hi
+        ))
+
+    def randint(self, site, shape, high, *, round=None):
+        if site == "profiles.class":
+            key = self._init_key(30, 0, 5)
+        elif site == "eval.labels":
+            key, _ = jax.random.split(self.round_key(round, "eval"))
+        else:
+            raise KeyError(site)
+        return _t(jax.random.randint(key, tuple(shape), 0, high)).to(torch.int64)
+
+    def permutation(self, site, n, *, round=None, epoch=None):
+        if site == "malicious":
+            key = self._init_key(41)
+        elif site == "drift.perm":
+            key = jax.random.fold_in(jax.random.PRNGKey(self.seed + 13), epoch)
+        elif site == "rcs.perm":
+            key = self.round_key(round, "sel")
+        else:
+            raise KeyError(site)
+        return _t(jax.random.permutation(key, n)).to(torch.int64)
+
+    def bernoulli(self, site, p, shape, *, epoch):
+        assert site == "drift.flags", site
+        dk = jax.random.fold_in(jax.random.PRNGKey(self.seed + 11), epoch)
+        flags = jax.vmap(
+            lambda c: jax.random.bernoulli(jax.random.fold_in(dk, c), p)
+        )(jnp.arange(shape[0]))
+        return _t(flags)
+
+    def dirichlet(self, site, alpha, shape, *, epoch):
+        assert site == "prior", site
+        n, k = shape
+        return _t(_priors(self.seed, epoch, alpha, n, k))
+
+    def categorical(self, site, logits, n, *, round):
+        assert site == "client_batch.labels", site
+        lg = jnp.asarray(logits.detach().cpu().numpy())
+        return _t(_client_labels(self.round_key(round, "data"), lg, n)).to(torch.int64)
