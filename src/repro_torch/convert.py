@@ -9,7 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.types import ClientTelemetry, SchedulerState
+from repro_torch.core.types import (
+    ClientTelemetry,
+    PopulationSchedulerState,
+    SchedulerState,
+)
 from repro_torch.data.telemetry import DeviceProfiles
 from repro_torch.device import resolve_device
 
@@ -25,15 +29,20 @@ def params_from_jax(params, device=None):
     return [{"w": _t(l["w"], device), "b": _t(l["b"], device)} for l in params]
 
 
+def _get(obj, name):
+    return obj.get(name) if isinstance(obj, dict) else getattr(obj, name, None)
+
+
 def _fields(obj, names, device):
-    get = obj.get if isinstance(obj, dict) else lambda k: getattr(obj, k)
-    return {k: _t(get(k), device) for k in names}
+    return {k: _t(_get(obj, k), device) for k in names}
 
 
 def state_from_jax(env, sched_state, telemetry, device=None):
-    """(env, sched_state, telemetry) of ``repro``'s dense ``init_state`` —
+    """(env, sched_state, telemetry) of ``repro``'s ``init_state`` —
     objects or dicts whose fields are numpy arrays — -> the port's, on the
-    CUDA card unless ``device`` names another."""
+    CUDA card unless ``device`` names another. A population state (its
+    scheduler rows carry ``last_hist_round`` and no ``prev_hist``) becomes
+    a ``PopulationSchedulerState`` beside the (M,)-row env and telemetry."""
     device = resolve_device(device)
     prof = env["profiles"]
     profiles = DeviceProfiles(**_fields(
@@ -45,10 +54,14 @@ def state_from_jax(env, sched_state, telemetry, device=None):
         "malicious": _t(env["malicious"], device, torch.bool),
         "data_seed": int(np.asarray(env["data_seed"])),
     }
-    sched = SchedulerState(**_fields(
-        sched_state,
-        ("prev_hist", "theta_e", "warm", "last_used", "energy_spent", "round_index"),
-        device,
-    ))
+    rows = ("theta_e", "warm", "last_used", "energy_spent")
+    if _get(sched_state, "last_hist_round") is not None:
+        sched = PopulationSchedulerState(**_fields(
+            sched_state, rows + ("last_hist_round", "round_index"), device
+        ))
+    else:
+        sched = SchedulerState(**_fields(
+            sched_state, ("prev_hist",) + rows + ("round_index",), device
+        ))
     tel = ClientTelemetry(**_fields(telemetry, ("cpu", "mem", "batt", "energy"), device))
     return new_env, sched, tel

@@ -76,6 +76,33 @@ class SchedulerState:
 
 
 @dataclasses.dataclass(frozen=True)
+class PopulationSchedulerState:
+    """Population-scale scheduler registry: cheap ``(M,)`` rows only.
+
+    Each round gathers a cohort-sized :class:`SchedulerState` from these
+    rows (``fl.fog.gather_cohort_sched``) and scatters the advanced rows
+    back. ``prev_hist`` is not stored (an (M, V) table is 248 MB at a
+    million clients and 62 bins): ``last_hist_round`` records the round
+    at which each client's histogram was last observed, and the drift
+    reference is recomputed for the cohort only.
+
+    theta_e:         (M,) adaptive per-client energy thresholds (Eq. 10).
+    warm:            (M,) bool — container warm/cold state (Eq. 4).
+    last_used:       (M,) int32 — round index of last invocation.
+    energy_spent:    (M,) cumulative Joules (sim units) per client.
+    last_hist_round: (M,) int32 — round the drift reference was taken at.
+    round_index:     () int32.
+    """
+
+    theta_e: Array
+    warm: Array
+    last_used: Array
+    energy_spent: Array
+    last_hist_round: Array
+    round_index: Array
+
+
+@dataclasses.dataclass(frozen=True)
 class SelectionResult:
     """Output of one scheduling decision (see ``repro.core.types``)."""
 
@@ -103,4 +130,21 @@ def init_scheduler_state(
         ),
         energy_spent=torch.zeros((num_clients,), **f32),
         round_index=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def init_population_scheduler_state(
+    population: int, theta_e0: float = 0.5, *, device=None
+) -> PopulationSchedulerState:
+    """Fresh population registry: cold containers, round-0 drift
+    references; on the CUDA card unless ``device`` names another."""
+    device = resolve_device(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return PopulationSchedulerState(
+        theta_e=torch.full((population,), theta_e0, dtype=torch.float32, device=device),
+        warm=torch.zeros((population,), dtype=torch.bool, device=device),
+        last_used=torch.full((population,), -1, **i32),
+        energy_spent=torch.zeros((population,), dtype=torch.float32, device=device),
+        last_hist_round=torch.zeros((population,), **i32),
+        round_index=torch.zeros((), **i32),
     )

@@ -43,68 +43,83 @@ def _templates(cfg: EmnistLikeConfig, draws) -> torch.Tensor:
     return torch.tanh(up * 2.0)
 
 
-def _drift_epoch(cfg: EmnistLikeConfig, draws, n: int, round_idx: int):
-    """(epoch, flags): the drift epoch of ``round_idx`` and the (n,) bool
-    mask of clients drifted in it. A client's effective epoch is
-    ``epoch`` where flagged, else 0 (undrifted). ``flags`` is None when
-    no client can be drifted (drift off, or epoch 0)."""
+def _drift_epoch(cfg: EmnistLikeConfig, draws, n: int, round_idx, ids=None):
+    """(epoch, flags): the drift epoch of ``round_idx`` (an int, or an (n,)
+    tensor for per-client rounds) and the (n,) bool mask of clients
+    drifted in it. A client's effective epoch is ``epoch`` where flagged,
+    else 0 (undrifted). ``flags`` is None when no client can be drifted
+    (drift off, or an int round in epoch 0)."""
     if not cfg.drift_period:
         return 0, None
-    epoch = int(round_idx) // cfg.drift_period
-    if epoch == 0:
-        return 0, None
+    if isinstance(round_idx, torch.Tensor):
+        epoch = torch.div(round_idx.to(torch.int64), cfg.drift_period,
+                          rounding_mode="floor")
+    else:
+        epoch = int(round_idx) // cfg.drift_period
+        if epoch == 0:
+            return 0, None
     return epoch, draws.bernoulli(
-        "drift.flags", cfg.drift_fraction, (n,), epoch=epoch
+        "drift.flags", cfg.drift_fraction, (n,), epoch=epoch, ids=ids
     )
 
 
-def client_label_prior(cfg: EmnistLikeConfig, draws, n: int, round_idx: int):
-    """(n, K) label priors: Dirichlet draws keyed by (seed, client,
-    effective drift epoch), so every round of an epoch sees the same one."""
-    k = cfg.num_classes
-    prior0 = draws.dirichlet("prior", cfg.dirichlet_alpha, (n, k), epoch=0)
-    epoch, flags = _drift_epoch(cfg, draws, n, round_idx)
+def _effective_epoch(cfg, draws, n, round_idx, ids):
+    """(n,) int64 effective drift epochs, or None when none can be > 0."""
+    epoch, flags = _drift_epoch(cfg, draws, n, round_idx, ids)
     if flags is None:
-        return prior0
-    prior_e = draws.dirichlet("prior", cfg.dirichlet_alpha, (n, k), epoch=epoch)
-    return torch.where(flags[:, None], prior_e, prior0)
+        return None
+    return torch.where(flags, epoch, 0)
+
+
+def _prior(cfg, draws, n, eff, ids):
+    return draws.dirichlet(
+        "prior", cfg.dirichlet_alpha, (n, cfg.num_classes), ids=ids,
+        epoch=0 if eff is None else eff,
+    )
+
+
+def client_label_prior(cfg: EmnistLikeConfig, draws, n: int, round_idx, ids=None):
+    """(n, K) label priors: Dirichlet draws keyed by (seed, client id,
+    effective drift epoch), so every round of an epoch, and every cohort,
+    sees the same one."""
+    return _prior(cfg, draws, n, _effective_epoch(cfg, draws, n, round_idx, ids), ids)
 
 
 def client_batch(
     cfg: EmnistLikeConfig, draws, n: int, round_idx: int, batch: int,
-    templates: torch.Tensor,
+    templates: torch.Tensor, ids=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (images (n, batch, 784) f32, labels (n, batch) int64).
 
-    Drifted clients see their labels permuted by the epoch's permutation
+    Drifted clients see their labels permuted by their epoch's permutation
     (concept drift, §IV.A), which is what Eq. 2's gate must detect."""
-    prior = client_label_prior(cfg, draws, n, round_idx)
+    eff = _effective_epoch(cfg, draws, n, round_idx, ids)
+    prior = _prior(cfg, draws, n, eff, ids)
     labels = draws.categorical(
-        "client_batch.labels", torch.log(prior + 1e-9), batch, round=round_idx
+        "client_batch.labels", torch.log(prior + 1e-9), batch, round=round_idx,
+        ids=ids,
     )
     noise = draws.normal(
-        "client_batch.noise", (n, batch, IMG * IMG), round=round_idx
+        "client_batch.noise", (n, batch, IMG * IMG), round=round_idx, ids=ids
     )
     temps = templates.reshape(cfg.num_classes, IMG * IMG)[labels]
     imgs = temps + noise * cfg.noise
-    epoch, flags = _drift_epoch(cfg, draws, n, round_idx)
-    if flags is not None:
-        perm = draws.permutation("drift.perm", cfg.num_classes, epoch=epoch)
-        labels = torch.where(flags[:, None], perm[labels], labels)
+    if eff is not None:
+        perm = draws.permutation("drift.perm", cfg.num_classes, epoch=eff)
+        labels = torch.where(eff[:, None] > 0, torch.gather(perm, 1, labels), labels)
     return imgs.to(torch.float32), labels
 
 
-def client_histogram(cfg: EmnistLikeConfig, draws, n: int, round_idx: int):
+def client_histogram(cfg: EmnistLikeConfig, draws, n: int, round_idx, ids=None):
     """(n, K) exact OBSERVED label distributions — the Eq. 2 drift signal
     (the drift permutation applied to the prior)."""
-    prior = client_label_prior(cfg, draws, n, round_idx)
-    epoch, flags = _drift_epoch(cfg, draws, n, round_idx)
-    if flags is None:
+    eff = _effective_epoch(cfg, draws, n, round_idx, ids)
+    prior = _prior(cfg, draws, n, eff, ids)
+    if eff is None:
         return prior
-    perm = draws.permutation("drift.perm", cfg.num_classes, epoch=epoch)
-    permuted = torch.zeros_like(prior)
-    permuted[:, perm] = prior
-    return torch.where(flags[:, None], permuted, prior)
+    perm = draws.permutation("drift.perm", cfg.num_classes, epoch=eff)
+    permuted = torch.zeros_like(prior).scatter(1, perm, prior)
+    return torch.where(eff[:, None] > 0, permuted, prior)
 
 
 def eval_batch(

@@ -1,10 +1,18 @@
-"""Paper-scale FedFog simulator, dense synchronous mode (port of
+"""Paper-scale FedFog simulator, synchronous mode (port of
 ``repro/fl/simulator.py``).
 
 N edge clients train a small MLP on the EMNIST-like task under the full
 scheduler (Eqs. 1-12), the §IV.F latency / energy model and drift
 injection. All N clients are batched: their weights are stacked as
 (N, in, out) and trained with ``torch.bmm``.
+
+With ``population`` M > N the (M,) registries (telemetry, profiles,
+scheduler rows, data sizes, attacker flags) stay on the device and each
+round samples a stratified N-client cohort, gathers its rows, runs the
+same round at cohort size and scatters the advanced rows back
+(``fl.fog``). With ``fog_nodes`` F > 1 the Eq. 6 reduction runs edge →
+fog → cloud: each of F fog aggregators reduces its contiguous block of
+N/F clients (K4 on the kernel path) and the cloud combines the partials.
 
 Two engines share ONE round function (``_round``):
 
@@ -18,8 +26,9 @@ fixed client registry, never a gather.
 
 With ``use_pallas_agg=True`` the server side (Eq. 6 weighting or the
 median / trimmed selection, DP noise, apply) runs as the fused
-delta-pipeline kernel on CUDA tensors (``kernels.delta_pipeline``); on
-CPU tensors the same entry point runs its plain version.
+delta-pipeline kernel on CUDA tensors (``kernels.delta_pipeline``: K3,
+or one K4 per fog); on CPU tensors the same entry points run their plain
+versions.
 
 Random draws come from a draw provider (``repro_torch.random``); the
 configurations the port does not run yet raise ``NotImplementedError``
@@ -40,7 +49,11 @@ from repro_torch.core import aggregation as agg_mod
 from repro_torch.core import privacy as privacy_mod
 from repro_torch.core.scheduler import SchedulerConfig, account_energy, schedule_round
 from repro_torch.core.selection import random_selection_mask, topk_mask
-from repro_torch.core.types import init_scheduler_state, static_on
+from repro_torch.core.types import (
+    init_population_scheduler_state,
+    init_scheduler_state,
+    static_on,
+)
 from repro_torch.data import emnist_like
 from repro_torch.data.telemetry import (
     TelemetryConfig,
@@ -49,6 +62,7 @@ from repro_torch.data.telemetry import (
     step_telemetry,
 )
 from repro_torch.device import resolve_device
+from repro_torch.fl import fog as fog_mod
 from repro_torch.fl.compression import apply_compression, wire_bytes_per_param
 from repro_torch.fl.fuse import (
     fuse_clients,
@@ -162,10 +176,6 @@ class SimulatorConfig:
 def _check_supported(cfg: SimulatorConfig, tap) -> None:
     if cfg.attack not in ("none", "label_flip"):
         raise NotImplementedError(_TODO.format(f"attack={cfg.attack!r}"))
-    if cfg.population not in (None, cfg.num_clients):
-        raise NotImplementedError(_TODO.format("population / cohort mode"))
-    if cfg.fog_nodes > 1:
-        raise NotImplementedError(_TODO.format("fog_nodes > 1"))
     if cfg.faults is not None:
         raise NotImplementedError(_TODO.format("faults"))
     if tap is not None:
@@ -185,6 +195,17 @@ class FedFogSimulator:
         ``cfg.seed``. ``defer_state`` skips the eager state build."""
         _check_supported(cfg, tap)
         self.cfg = cfg
+        # Population / cohort split: the registries live at M, all
+        # model-sized work at the cohort size C = num_clients. Dense mode
+        # (population None or C) is the flat round, unchanged.
+        self.population = cfg.population or cfg.num_clients
+        self._pop_mode = self.population != cfg.num_clients
+        if self.population < cfg.num_clients:
+            raise ValueError(
+                f"population={cfg.population} must be >= the cohort size "
+                f"num_clients={cfg.num_clients}"
+            )
+        fog_mod.validate_fog_config(cfg.fog_nodes, cfg.num_clients, cfg.aggregator)
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else TorchDraws(cfg.seed, self.device)
         self.data_cfg = cfg.data_cfg()
@@ -192,14 +213,18 @@ class FedFogSimulator:
         self.num_classes = n_cls
         self.sizes = (in_dim,) + tuple(cfg.hidden) + (n_cls,)
         self.tel_cfg = cfg.telemetry or TelemetryConfig(
-            num_clients=cfg.num_clients, seed=cfg.seed
+            num_clients=self.population, seed=cfg.seed
         )
-        if self.tel_cfg.num_clients != cfg.num_clients:
+        if self.tel_cfg.num_clients != self.population:
             raise ValueError(
                 f"telemetry.num_clients={self.tel_cfg.num_clients} must "
-                f"match the population size {cfg.num_clients}"
+                f"match the population size {self.population}"
             )
-        self.n_mal = int(round(cfg.attack_fraction * cfg.num_clients))
+        # Cohort-sized config for stepping the gathered telemetry rows.
+        self._tel_cfg_cohort = dataclasses.replace(
+            self.tel_cfg, num_clients=cfg.num_clients
+        )
+        self.n_mal = int(round(cfg.attack_fraction * self.population))
         self.cost_model = RoundCostModel(cfg.faas)
         self.n_params = sum(a * b + b for a, b in zip(self.sizes[:-1], self.sizes[1:]))
         # Matrix products in full float32, as JAX computes them on the CPU
@@ -226,27 +251,39 @@ class FedFogSimulator:
     def init_state(self, seed: int):
         """State init: (env, params, sched_state, telemetry), drawn from
         the provider (whose seed is ``seed``)."""
-        cfg, draws, n = self.cfg, self.draws, self.cfg.num_clients
+        cfg, draws, n = self.cfg, self.draws, self.population
         if int(seed) != getattr(draws, "seed", int(seed)):
             raise ValueError(f"seed={seed} differs from the provider's {draws.seed}")
         with torch.no_grad():
             params = mlp_init(draws, self.sizes)
             profiles = make_profiles(self.tel_cfg, draws)
             telemetry = init_telemetry(self.tel_cfg, draws)
-            sched = init_scheduler_state(
-                n, self.num_classes, cfg.scheduler.theta_e, device=self.device
-            )
-            # Bootstrap the drift reference with the true round-0
-            # distributions, otherwise round 0 flags every client.
-            sched = dataclasses.replace(
-                sched, prev_hist=self._histograms(self.data_cfg, 0)
-            )
+            if self._pop_mode:
+                # (M,) rows, no (M, V) histogram table: the drift reference
+                # is recomputed per cohort from last_hist_round.
+                sched = init_population_scheduler_state(
+                    n, cfg.scheduler.theta_e, device=self.device
+                )
+            else:
+                sched = init_scheduler_state(
+                    n, self.num_classes, cfg.scheduler.theta_e, device=self.device
+                )
+                # Bootstrap the drift reference with the true round-0
+                # distributions, otherwise round 0 flags every client.
+                sched = dataclasses.replace(
+                    sched, prev_hist=self._histograms(self.data_cfg, 0)
+                )
             data_sizes = torch.exp(
                 draws.normal("data_sizes", (n,)) * 0.5
                 + torch.log(torch.tensor(300.0, device=self.device))
             )
-            perm = draws.permutation("malicious", n)
-            malicious = (torch.arange(n, device=self.device) < self.n_mal)[perm]
+            if self._pop_mode and self.n_mal == 0:
+                # No attackers: skip an O(M log M) permutation of all-False
+                # flags (the JAX package skips it the same way).
+                malicious = torch.zeros((n,), dtype=torch.bool, device=self.device)
+            else:
+                perm = draws.permutation("malicious", n)
+                malicious = (torch.arange(n, device=self.device) < self.n_mal)[perm]
         env = {
             "profiles": profiles,
             "data_sizes": data_sizes,
@@ -256,9 +293,11 @@ class FedFogSimulator:
         return env, params, sched, telemetry
 
     # ------------------------------------------------------------------ #
-    def _histograms(self, data_cfg, round_idx: int):
+    def _histograms(self, data_cfg, round_idx, ids=None):
+        """(C, K) histograms of the dense registry or of cohort ``ids``;
+        ``round_idx`` an int or, per client, a (C,) tensor."""
         return emnist_like.client_histogram(
-            data_cfg, self.draws, self.cfg.num_clients, round_idx
+            data_cfg, self.draws, self.cfg.num_clients, round_idx, ids=ids
         )
 
     def _participation(self, decision, telemetry, round_idx: int):
@@ -275,14 +314,16 @@ class FedFogSimulator:
             mask = telemetry.batt > 0.05
         return mask
 
-    def _local_deltas(self, data_cfg, params, round_idx: int, mask, malicious):
+    def _local_deltas(self, data_cfg, params, round_idx: int, mask, malicious,
+                      ids=None):
         """E local epochs of SGD on every client at once (Eq. 5), then
         clip and compression. Returns ``(deltas, mask)``: deltas is the
-        params tree with a leading client axis."""
+        params tree with a leading client axis. ``ids`` are the cohort's
+        client ids in population mode."""
         cfg, n = self.cfg, self.cfg.num_clients
         e, b = cfg.local_epochs, cfg.local_batch
         x, y = emnist_like.client_batch(
-            data_cfg, self.draws, n, round_idx, b * e, self._templates
+            data_cfg, self.draws, n, round_idx, b * e, self._templates, ids=ids
         )
         if cfg.attack == "label_flip":
             y = torch.where(malicious[:, None], (self.num_classes - 1) - y, y)
@@ -322,12 +363,15 @@ class FedFogSimulator:
 
     # ------------------------------------------------------------------ #
     def _apply_deltas(self, params, deltas, mask, data_sizes, round_idx: int):
-        """Aggregate the client deltas and apply the server update."""
+        """Aggregate the client deltas and apply the server update; with
+        ``fog_nodes > 1`` the Eq. 6 reduction runs fog partials -> cloud
+        combine (``fl.fog``) on both the kernel and the reference path."""
         cfg = self.cfg
         if cfg.use_pallas_agg:
             # Fused delta pipeline: Eq. 6 weighting (or the median /
             # trimmed selection) + DP noise + apply in ONE pass over the
-            # fused (N, P) buffer; clip/compression already happened in
+            # fused (N, P) buffer (K3), or one K4 pass per fog block plus
+            # the cloud epilogue; clip/compression already happened in
             # _local_deltas. The DP noise is the reference path's draws.
             from repro_torch.kernels.delta_pipeline import delta_pipeline_apply
 
@@ -339,16 +383,24 @@ class FedFogSimulator:
                     self.draws, cfg.dp_sigma * (cfg.clip_norm or 1.0),
                     stacked_leaf_sizes(deltas), round=round_idx,
                 )
-            new_flat = delta_pipeline_apply(
-                cat_d, base_flat, mask, data_sizes,
-                lr=cfg.server_lr, dp_noise=noise,
-                trim_fraction=cfg.trim_fraction, aggregator=cfg.aggregator,
-            )
+            if cfg.fog_nodes > 1:
+                new_flat = fog_mod.fog_pipeline_apply(
+                    cat_d, base_flat, mask, data_sizes, lr=cfg.server_lr,
+                    dp_noise=noise, fog_nodes=cfg.fog_nodes,
+                )
+            else:
+                new_flat = delta_pipeline_apply(
+                    cat_d, base_flat, mask, data_sizes,
+                    lr=cfg.server_lr, dp_noise=noise,
+                    trim_fraction=cfg.trim_fraction, aggregator=cfg.aggregator,
+                )
             return unfuse_vec(new_flat)
         if cfg.aggregator == "median":
             agg = agg_mod.median_aggregate(deltas, mask)
         elif cfg.aggregator == "trimmed":
             agg = agg_mod.trimmed_mean_aggregate(deltas, mask, cfg.trim_fraction)
+        elif cfg.fog_nodes > 1:
+            agg = fog_mod.fog_aggregate_tree(deltas, mask, data_sizes, cfg.fog_nodes)
         else:
             agg = agg_mod.fedavg_stacked(deltas, mask, data_sizes)
         if static_on(cfg.dp_sigma):
@@ -362,31 +414,66 @@ class FedFogSimulator:
         return tree.map(lambda p, a: p + cfg.server_lr * a, params, agg)
 
     # ------------------------------------------------------------------ #
+    def _gather_cohort(self, env, sched_state, telemetry, data_cfg, round_idx):
+        """Population mode: sample the round's cohort and gather its rows.
+        Returns ``(ids, sched, tel, profiles, data_sizes, malicious, hist)``
+        at cohort size; the drift reference is recomputed at each member's
+        last-observed round (with drift off the histograms do not depend on
+        the round, so this round's serve)."""
+        cfg = self.cfg
+        ids = fog_mod.stratified_cohort(
+            self.draws, self.population, cfg.num_clients, round=round_idx
+        )
+        hist = self._histograms(data_cfg, round_idx, ids)
+        if cfg.drift_period:
+            prev_fn = lambda c, r: self._histograms(data_cfg, r, c)  # noqa: E731
+        else:
+            prev_fn = lambda c, r: hist  # noqa: E731
+        return (
+            ids,
+            fog_mod.gather_cohort_sched(sched_state, ids, prev_fn),
+            fog_mod.gather_rows(telemetry, ids),
+            fog_mod.gather_rows(env["profiles"], ids),
+            torch.index_select(env["data_sizes"], 0, ids),
+            torch.index_select(env["malicious"], 0, ids),
+            hist,
+        )
+
     @torch.no_grad()
     def _round(self, env, params, sched_state, telemetry, round_idx: int):
-        """One synchronous FL round: a pure function of its arguments and
-        of the provider's draws keyed by ``round_idx``."""
+        """One synchronous FL round: a function of its arguments and of the
+        provider's draws keyed by ``round_idx``. In population mode it runs
+        at cohort size between a gather and an in-place scatter of the
+        cohort's rows of ``sched_state`` and ``telemetry``."""
         cfg = self.cfg
         data_cfg = dataclasses.replace(self.data_cfg, seed=env["data_seed"])
-        malicious = env["malicious"]
 
         with _phase("schedule"):
-            hist = self._histograms(data_cfg, round_idx)
-            decision = schedule_round(sched_state, telemetry, hist, cfg.scheduler)
-            mask = self._participation(decision, telemetry, round_idx)
+            ids = None
+            if self._pop_mode:
+                ids, sched, tel, profiles, data_sizes, malicious, hist = (
+                    self._gather_cohort(env, sched_state, telemetry, data_cfg,
+                                        round_idx)
+                )
+            else:
+                sched, tel, profiles = sched_state, telemetry, env["profiles"]
+                data_sizes, malicious = env["data_sizes"], env["malicious"]
+                hist = self._histograms(data_cfg, round_idx)
+            decision = schedule_round(sched, tel, hist, cfg.scheduler)
+            mask = self._participation(decision, tel, round_idx)
         with _phase("local_sgd"):
             deltas, mask = self._local_deltas(
-                data_cfg, params, round_idx, mask, malicious
+                data_cfg, params, round_idx, mask, malicious, ids
             )
 
         # --- DES: latency + energy (§IV.F, shared RoundCostModel) ----- #
         with _phase("costs"):
             workload, up_bytes, down_bytes = self._round_workload()
-            warm = sched_state.warm
+            warm = sched.warm
             if cfg.policy in ("fogfaas",):
                 warm = torch.zeros_like(warm)  # naive platform: no keep-alive
             costs = self.cost_model.round_costs(
-                env["profiles"], mask, warm, workload, up_bytes, down_bytes,
+                profiles, mask, warm, workload, up_bytes, down_bytes,
                 policy="fedfog" if cfg.policy in ("fedfog", "rcs", "vanilla")
                 else "fogfaas",
             )
@@ -395,14 +482,19 @@ class FedFogSimulator:
 
         with _phase("server"):
             new_params = self._apply_deltas(
-                params, deltas, mask, env["data_sizes"], round_idx
+                params, deltas, mask, data_sizes, round_idx
             )
         with _phase("telemetry"):
             new_sched = account_energy(decision.new_state, energy_j, cfg.scheduler)
             new_tel = step_telemetry(
-                self.tel_cfg, telemetry, mask, energy_j, env["profiles"],
+                self._tel_cfg_cohort, tel, mask, energy_j, profiles,
                 self.draws, round=round_idx,
             )
+            if self._pop_mode:
+                new_sched = fog_mod.scatter_cohort_sched(
+                    sched_state, ids, new_sched, round_idx
+                )
+                new_tel = fog_mod.scatter_rows(telemetry, ids, new_tel)
         with _phase("eval"):
             acc = self._eval_accuracy(data_cfg, new_params, round_idx)
         metrics = {

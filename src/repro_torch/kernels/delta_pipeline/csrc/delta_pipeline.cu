@@ -1,6 +1,6 @@
 // The fused FedFog delta pipeline, hand-written for Hopper (sm_90a).
 //
-// Two kernels, bound to Python through a plain C interface (ctypes):
+// Three entry points, bound to Python through a plain C interface (ctypes):
 //
 //   fedfog_delta_sq_norms  replaces the Pallas kernel `_sq_norms_kernel`
 //       (src/repro/kernels/delta_pipeline/delta_pipeline.py, pallas_call of
@@ -12,8 +12,17 @@
 //       int8 or top-k emulation from the (C, L) table -> Eq. 6 weighted sum
 //       (weights row built outside) or masked median / trimmed mean -> + DP
 //       noise -> FedAvgM / FedAdam momentum -> base + lr * step.
+//   fedfog_delta_pipeline_partial  replaces `_make_partial_kernel` (same
+//       file, pallas_call of `delta_pipeline_partial`): the fog aggregator's
+//       pass over its own (C_local, P) block, clip pre-scale -> int8 or top-k
+//       emulation from the fog-local (C_local, L) table -> the UNnormalized
+//       weighted sum out[p] = sum_i dm[i] * x[i, p]. No normalisation, noise
+//       or apply: the cloud combines the fogs' partials (fl/fog.py). It is
+//       `fedavg_kernel` instantiated with kPartial, so its transform, client
+//       order and FMA are K3's and the family's arithmetic stays one.
 //
-// What bounds them on an H100: device-memory bytes. The pipeline reads the
+// What bounds them on an H100: device-memory bytes (K4 reads its C_local*P*4
+// bytes once and writes P*4). The pipeline reads the
 // C*P*4 bytes of the delta buffer once, plus 1-2 (P,) vectors (base, and
 // noise / momentum / segment ids when their gates are on), and writes one or
 // two (P,) vectors; it does ~2*C*P flops, far below the card's rate. The
@@ -148,6 +157,8 @@ __device__ __forceinline__ void stage_rows(const PipelineArgs& a, float* s_wn,
   __syncthreads();
 }
 
+// kPartial: write the raw weighted sum (K4) instead of running the epilogue.
+template <bool kPartial>
 __global__ void __launch_bounds__(kThreads) fedavg_kernel(PipelineArgs a) {
   extern __shared__ float smem[];
   float* s_wn = smem;
@@ -194,7 +205,12 @@ __global__ void __launch_bounds__(kThreads) fedavg_kernel(PipelineArgs a) {
   }
 #pragma unroll
   for (int j = 0; j < kCols; ++j) {
-    if (ok[j]) epilogue(acc[j], p0 + j * kThreads, a);
+    if (!ok[j]) continue;
+    if constexpr (kPartial) {
+      a.out[p0 + j * kThreads] = acc[j];
+    } else {
+      epilogue(acc[j], p0 + j * kThreads, a);
+    }
   }
 }
 
@@ -281,12 +297,28 @@ int fedfog_delta_pipeline(const float* upd, const float* base, const float* wn,
   const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (aggregator == kFedavg) {
-    fedavg_kernel<<<grid, kThreads, shmem, s>>>(a);
+    fedavg_kernel<false><<<grid, kThreads, shmem, s>>>(a);
   } else if (C <= 64) {
     robust_kernel<64><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
   } else {
     robust_kernel<256><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: out (P,) = sum over the C fog-local clients of dm[i] * T(upd[i, :]).
+int fedfog_delta_pipeline_partial(const float* upd, const float* dm,
+                                  const float* pre, const int* seg,
+                                  const float* tab, float* out, int C, int L,
+                                  long long P, int compression, void* stream) {
+  if (C <= 0 || P <= 0 || C > 4096) return -1;
+  if (compression != kNone && (seg == nullptr || tab == nullptr || L <= 0)) return -1;
+  PipelineArgs a{upd, nullptr, dm, nullptr, pre, seg, tab, nullptr, nullptr,
+                 out, nullptr, P, C, L, 0.f, 0.f, compression, kPlain};
+  const long long per_block = static_cast<long long>(kThreads) * kCols;
+  const dim3 grid(static_cast<unsigned>((P + per_block - 1) / per_block));
+  const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(C);
+  fedavg_kernel<true><<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

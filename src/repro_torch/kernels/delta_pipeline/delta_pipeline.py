@@ -1,11 +1,12 @@
 """CUDA wrappers of the fused delta pipeline (port of
 ``repro/kernels/delta_pipeline/delta_pipeline.py``).
 
-``delta_sq_norms_cuda`` launches K2 (per-client Σx², the clip reduction)
-and ``delta_pipeline_apply_cuda`` launches K3 (clip pre-scale →
-compression emulation → Eq. 6 weighted sum or masked median / trimmed
-mean → DP noise → server momentum → apply) from
-``csrc/delta_pipeline.cu``. As in the JAX wrapper, the per-client rows
+``delta_sq_norms_cuda`` launches K2 (per-client Σx², the clip reduction),
+``delta_pipeline_apply_cuda`` launches K3 (clip pre-scale → compression
+emulation → Eq. 6 weighted sum or masked median / trimmed mean → DP
+noise → server momentum → apply) and ``delta_pipeline_partial_cuda``
+launches K4 (a fog's clip pre-scale → compression emulation →
+UNnormalized weighted sum) from ``csrc/delta_pipeline.cu``. As in the JAX wrapper, the per-client rows
 (Eq. 6 weights with the optional staleness discount and damping, the
 ``[num_sel, k_trim]`` pair, the clip scales) and the (C, L) compression
 table (:func:`segment_table`) are computed outside the kernel with
@@ -14,8 +15,9 @@ torch ops, on the device, with no host synchronisation.
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. Launches are counted
-in plain integer attributes, ``delta_sq_norms_cuda.launches`` (K2) and
-``launch_pipeline.launches`` (K3), which grow by one per launch.
+in plain integer attributes, ``delta_sq_norms_cuda.launches`` (K2),
+``launch_pipeline.launches`` (K3) and ``launch_partial.launches`` (K4),
+which grow by one per launch.
 ``ops.py`` sends CPU tensors to the plain versions in ``ref.py`` instead.
 """
 from __future__ import annotations
@@ -48,6 +50,8 @@ def library():
         [_P] * 11 + [_I, _I, _LL, _F, _F, _I, _I, _I, _P]
     )
     kl.lib.fedfog_delta_pipeline.restype = _I
+    kl.lib.fedfog_delta_pipeline_partial.argtypes = [_P] * 6 + [_I, _I, _LL, _I, _P]
+    kl.lib.fedfog_delta_pipeline_partial.restype = _I
     return kl
 
 
@@ -180,6 +184,17 @@ def pipeline_rows(
             wn = wn * ((torch.sum(dm) + _EPS) / (torch.sum(m) + _EPS))
         else:
             wn = m / (torch.sum(m) + _EPS)
+    return (wn, cnt) + gate_rows(
+        updates, clip_norm, compression, topk_fraction, seg_sizes, sq_norms
+    )
+
+
+def gate_rows(updates, clip_norm, compression, topk_fraction, seg_sizes,
+              sq_norms=delta_sq_norms_cuda):
+    """``(pre, seg, tab)``: (C,) clip scales from K2's norms (clip only),
+    (P,) int32 leaf ids and the (C, L) table on the raw deltas, rescaled
+    by ``pre`` (compression only); None where the gate is off."""
+    dev = updates.device
     pre = None
     if clip_norm and clip_norm > 0:
         norm = torch.sqrt(sq_norms(updates))
@@ -189,7 +204,7 @@ def pipeline_rows(
     if compression != "none":
         seg = segment_ids(seg_sizes, dev)
         tab = segment_table(updates, compression, topk_fraction, seg_sizes, pre=pre)
-    return wn, cnt, pre, seg, tab
+    return pre, seg, tab
 
 
 def delta_pipeline_apply_cuda(
@@ -277,3 +292,48 @@ def launch_pipeline(
 
 
 launch_pipeline.launches = 0
+
+
+def delta_pipeline_partial_cuda(
+    updates: torch.Tensor,  # (C_local, P) fused deltas of one fog's clients
+    dm: torch.Tensor,  # (C_local,) UNnormalized Eq. 6 weights (mask·|D|·disc)
+    *,
+    clip_norm: float = 0.0,
+    compression: str = "none",
+    topk_fraction: float = 0.05,
+    seg_sizes: tuple[int, ...] | None = None,
+) -> torch.Tensor:
+    """K4: one pass over a fog's (C_local, P) block -> the (P,) partial
+    ``Σ_i dm_i·T(x_i)``, T = clip pre-scale then compression emulation
+    with fog-local norms and table. Same gates as the JAX function."""
+    if updates.dim() != 2:
+        raise ValueError(f"updates must be (C, P), got {tuple(updates.shape)}")
+    c, p = updates.shape
+    validate(updates, compression, seg_sizes, "fedavg", None)
+    if c > 4096:
+        raise ValueError(f"the kernel supports C <= 4096 clients, got {c}")
+    _check(updates, "updates", (c, p))
+    _check(dm, "dm", (c,))
+    pre, seg, tab = gate_rows(updates, clip_norm, compression, topk_fraction, seg_sizes)
+    out = torch.empty((p,), dtype=torch.float32, device=updates.device)
+    launch_partial(updates, dm, pre, seg, tab, out, compression=compression)
+    return out
+
+
+def launch_partial(updates, dm, pre, seg, tab, out, *, compression):
+    """Launch K4 on prepared rows (see :func:`gate_rows`) into ``out``. The
+    one place K4 is launched, and so the one place its count grows."""
+    c, p = updates.shape
+    n_leaves = tab.shape[1] if tab is not None else 0
+    lib = library().lib
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        rc = lib.fedfog_delta_pipeline_partial(
+            updates.data_ptr(), dm.data_ptr(), _ptr(pre), _ptr(seg), _ptr(tab),
+            out.data_ptr(), c, n_leaves, p, _COMPRESSION[compression], stream,
+        )
+    _raise_on(rc, "delta_pipeline_partial")
+    launch_partial.launches += 1
+
+
+launch_partial.launches = 0

@@ -10,9 +10,11 @@ import torch
 
 from repro_torch.kernels.delta_pipeline.delta_pipeline import (
     delta_pipeline_apply_cuda,
+    delta_pipeline_partial_cuda,
     delta_sq_norms_cuda,
 )
 from repro_torch.kernels.delta_pipeline.ref import (
+    delta_pipeline_partial_ref,
     delta_pipeline_ref,
     delta_sq_norms_ref,
 )
@@ -37,3 +39,12 @@ def delta_pipeline_apply(updates: torch.Tensor, *args, **kwargs):
     Pallas tiling arguments."""
     fn = _route(updates, delta_pipeline_ref, delta_pipeline_apply_cuda)
     return fn(updates, *args, **kwargs)
+
+
+def delta_pipeline_partial(updates: torch.Tensor, dm: torch.Tensor, **kwargs):
+    """One fog's pass: clip + compression + UNnormalized Σ dm_i·x_i over
+    its (C_local, P) block -> (P,); the signature of
+    ``repro.kernels.delta_pipeline.delta_pipeline_partial`` without its
+    Pallas tiling arguments."""
+    fn = _route(updates, delta_pipeline_partial_ref, delta_pipeline_partial_cuda)
+    return fn(updates, dm, **kwargs)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of K2 and K3 (port of
-``repro/kernels/delta_pipeline/ref.py``).
+"""Plain PyTorch versions of K2, K3 and K4 (port of
+``repro/kernels/delta_pipeline/ref.py``; K4's plain version is new here,
+the JAX package tests its kernel against the sharded reference).
 
 ``delta_pipeline_ref`` composes the per-stage reference semantics on the
 fused (C, P) buffer in the round's order: clip (per client) →
@@ -61,6 +62,41 @@ def _compress(updates, compression, topk_fraction, seg_sizes):
     return torch.cat(parts, dim=1)
 
 
+def _transform(x, clip_norm, compression, topk_fraction, seg_sizes):
+    """Clip (per client), then compression emulation (per leaf)."""
+    if clip_norm and clip_norm > 0:
+        x = x * _clip_scales(x, clip_norm)[:, None]
+    if compression != "none":
+        x = _compress(x, compression, topk_fraction, seg_sizes)
+    return x
+
+
+def _weighted_sum(w, x):
+    """Σ_c w_c·x_c over clients in order, one float32 FMA each (the
+    kernels' order and XLA's CPU dot)."""
+    agg = torch.zeros_like(x[0])
+    for c in range(x.shape[0]):
+        agg = _fma(w[c], x[c], agg)
+    return agg
+
+
+def delta_pipeline_partial_ref(
+    updates,  # (C_local, P)
+    dm,  # (C_local,) UNnormalized weights
+    *,
+    clip_norm: float = 0.0,
+    compression: str = "none",
+    topk_fraction: float = 0.05,
+    seg_sizes=None,
+):
+    """K4's function: clip + compression on this block's clients, then the
+    UNnormalized weighted sum Σ dm_i·x_i -> (P,) f32."""
+    validate(updates, compression, seg_sizes, "fedavg", None)
+    x = _transform(updates.to(torch.float32), clip_norm, compression,
+                   topk_fraction, seg_sizes)
+    return _weighted_sum(dm.to(torch.float32), x)
+
+
 def delta_pipeline_ref(
     updates,  # (C, P)
     base,  # (P,)
@@ -82,11 +118,8 @@ def delta_pipeline_ref(
     aggregator: str = "fedavg",
 ):
     validate(updates, compression, seg_sizes, aggregator, staleness)
-    x = updates.to(torch.float32)
-    if clip_norm and clip_norm > 0:
-        x = x * _clip_scales(x, clip_norm)[:, None]
-    if compression != "none":
-        x = _compress(x, compression, topk_fraction, seg_sizes)
+    x = _transform(updates.to(torch.float32), clip_norm, compression,
+                   topk_fraction, seg_sizes)
 
     if aggregator == "median":
         agg = median_aggregate(x, mask)
@@ -105,9 +138,7 @@ def delta_pipeline_ref(
             damping = (torch.sum(dm) + _EPS) / (torch.sum(m) + _EPS)
         else:
             w = m / (torch.sum(m) + _EPS)
-        agg = torch.zeros_like(x[0])
-        for c in range(x.shape[0]):
-            agg = _fma(w[c], x[c], agg)
+        agg = _weighted_sum(w, x)
         if damping is not None:
             agg = agg * damping
     if dp_noise is not None:

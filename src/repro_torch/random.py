@@ -10,9 +10,12 @@ site plus the context that keys it (``round``, ``epoch``, ``index``):
   ============================  ==========================================
   ``init.mlp``                  standard normals of layer ``index``'s w
   ``templates``                 (K, 7, 7) normals of the class templates
-  ``prior``                     (C, K) Dirichlet label priors at ``epoch``
-  ``drift.flags``               (C,) Bernoulli drift flags at ``epoch``
-  ``drift.perm``                (K,) label permutation at ``epoch``
+  ``prior``                     (C, K) Dirichlet label priors of client
+                                ``ids`` at (per-client) ``epoch``
+  ``drift.flags``               (C,) Bernoulli drift flags of ``ids``
+  ``drift.perm``                (K,) label permutation at ``epoch``, or
+                                (C, K) for a (C,) tensor of epochs
+  ``cohort``                    (C,) offsets below per-stratum widths
   ``profiles.class``            (C,) device class in {0, 1, 2}
   ``profiles.mips|bw_up|rtt``   (C,) normals of the device profiles
   ``telemetry.init.cpu|mem|batt``  (C,) uniforms of the initial telemetry
@@ -29,11 +32,27 @@ site plus the context that keys it (``round``, ``epoch``, ``index``):
 Production (:class:`TorchDraws`) seeds a fresh ``torch.Generator`` on the
 simulator's device from a hash of ``(seed, site, context)``: every block
 is a pure function of its key, so ``run()`` and ``run_scanned()`` replay
-each other and the label prior of (client, drift epoch) is the same in
-every round that asks for it (a stateful stream would hand each round a
-new prior and the Eq. 2 drift gate would flag every client). The test
-provider, which replays the JAX package's key chain, lives with the
-tests and is never imported here.
+each other.
+
+Three sites are keyed per CLIENT rather than per block: ``prior``,
+``drift.flags`` (both by client id and drift epoch) and ``drift.perm``
+(by epoch). A client's label prior must be the same in every round of
+an epoch and in whichever cohort it lands (the Eq. 2 drift gate compares
+it with itself), and in population mode the cohort is 64 ids out of a
+million. A dense (M, K) block per epoch would cost 62 M gamma draws, so
+these sites use a counter-based generator written in torch integer ops:
+``lowbias32`` (a full-avalanche bijection of 32-bit words) hashes
+``(seed, site, id, epoch)`` into a per-client key, and a second pair of
+hashes of ``(key, j)`` gives the client's j-th 32-bit word. The cost is
+cohort-sized, the same on the CPU and the card, and needs no host
+synchronisation even when each client has its own epoch (the population
+drift reference, recomputed at each member's last-observed round).
+
+Client ids enter the other per-client sites of a cohort
+(``client_batch.*``) as ``ids``; the production provider keys those by
+round and cohort position and ignores ``ids``, the test provider folds
+them in as the JAX package does. The test provider, which replays the
+JAX package's key chain, lives with the tests and is never imported here.
 """
 from __future__ import annotations
 
@@ -43,13 +62,34 @@ import math
 import torch
 
 
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+_GAMMA_TRIES = 16
+
+
 def _key(*parts) -> int:
     digest = hashlib.blake2b(repr(parts).encode(), digest_size=8).digest()
     return int.from_bytes(digest, "little") & ((1 << 63) - 1)
 
 
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x·c mod 2³²`` for int64 ``x`` in [0, 2³²), in two 16-bit halves
+    of ``c`` so that no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32: a bijection of 32-bit words with full avalanche."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
 class TorchDraws:
-    """Production draw provider: keyed ``torch.Generator`` blocks on device."""
+    """Production draw provider: keyed ``torch.Generator`` blocks on device,
+    and counter-based per-client words for the sites keyed by client."""
 
     def __init__(self, seed: int, device: str | torch.device):
         self.seed = int(seed)
@@ -61,10 +101,29 @@ class TorchDraws:
         g.manual_seed(_key(self.seed, site, sorted(ctx.items())))
         return g
 
-    def normal(self, site: str, shape, *, segments=None, **ctx) -> torch.Tensor:
+    def _words(self, site: str, keys, epoch, count: int) -> torch.Tensor:
+        """(n, count) int64 32-bit words: row i is a pure function of
+        (seed, site, ``keys[i]``, ``epoch[i]``); ``epoch`` an int or (n,)."""
+        keys = torch.as_tensor(keys, dtype=torch.int64, device=self.device)
+        if isinstance(epoch, torch.Tensor):
+            epoch = epoch.to(torch.int64)
+        base = _mix32(_mix32(keys ^ (_key(self.seed, site) & _M32)) ^ epoch)[:, None]
+        j = torch.arange(count, dtype=torch.int64, device=self.device)
+        return _mix32(_mix32((base + _mul32(j, _GOLDEN)) & _M32) ^ base)
+
+    def _counter_uniform(self, site, keys, epoch, count) -> torch.Tensor:
+        """(n, count) float32 uniforms in (0, 1) from the top 24 bits."""
+        w = self._words(site, keys, epoch, count)
+        return ((w >> 8).to(torch.float32) + 0.5) * 2.0**-24
+
+    def _ids(self, ids, n: int) -> torch.Tensor:
+        return torch.arange(n, device=self.device) if ids is None else ids
+
+    def normal(self, site: str, shape, *, segments=None, ids=None, **ctx):
         """Standard normals. ``segments`` (leaf sizes of a fused vector)
-        only matters to a provider that draws leaf by leaf."""
-        del segments
+        only matters to a provider that draws leaf by leaf; ``ids`` (the
+        cohort's client ids) to one that keys batches by client."""
+        del segments, ids
         return torch.randn(
             tuple(shape), generator=self._gen(site, **ctx), device=self.device
         )
@@ -75,64 +134,84 @@ class TorchDraws:
         )
         return torch.clamp(u * (hi - lo) + lo, min=lo)
 
-    def randint(self, site: str, shape, high: int, **ctx) -> torch.Tensor:
-        return torch.randint(
-            0, high, tuple(shape), generator=self._gen(site, **ctx),
-            device=self.device,
-        )
+    def randint(self, site: str, shape, high, **ctx) -> torch.Tensor:
+        """Integers in [0, high); ``high`` an int or a tensor of per-element
+        bounds (the ``cohort`` strata widths), then ``floor(u·high)``."""
+        g = self._gen(site, **ctx)
+        if isinstance(high, torch.Tensor):
+            u = torch.rand(
+                tuple(shape), generator=g, dtype=torch.float64, device=self.device
+            )
+            return torch.minimum(torch.floor(u * high).to(torch.int64), high - 1)
+        return torch.randint(0, high, tuple(shape), generator=g, device=self.device)
 
-    def permutation(self, site: str, n: int, **ctx) -> torch.Tensor:
-        return torch.randperm(
-            n, generator=self._gen(site, **ctx), device=self.device
-        )
+    def permutation(self, site: str, n: int, *, epoch=None, **ctx) -> torch.Tensor:
+        """A permutation of ``range(n)``. Keyed by ``epoch`` (``drift.perm``)
+        it is counter-based: an argsort of ``n`` words per epoch, (n,) for
+        an int epoch and (C, n) for a (C,) tensor of epochs."""
+        if epoch is None:
+            return torch.randperm(
+                n, generator=self._gen(site, **ctx), device=self.device
+            )
+        e = torch.as_tensor(epoch, dtype=torch.int64, device=self.device)
+        perm = torch.argsort(self._words(site, e.reshape(-1), 0, n), dim=1, stable=True)
+        return perm.reshape(tuple(e.shape) + (n,))
 
-    def bernoulli(self, site: str, p: float, shape, **ctx) -> torch.Tensor:
-        u = torch.rand(
-            tuple(shape), generator=self._gen(site, **ctx), device=self.device
-        )
-        return u < p
+    def bernoulli(self, site: str, p: float, shape, *, epoch, ids=None):
+        """(C,) flags of clients ``ids`` (default ``arange(C)``) at ``epoch``
+        (an int or a (C,) tensor), counter-based."""
+        ids = self._ids(ids, shape[0])
+        return self._counter_uniform(site, ids, epoch, 1)[:, 0] < p
 
-    def categorical(self, site: str, logits: torch.Tensor, n: int, **ctx):
+    def categorical(self, site: str, logits: torch.Tensor, n: int, *, ids=None, **ctx):
         """(C, n) int64 samples, row c from ``softmax(logits[c])``."""
+        del ids
         probs = torch.softmax(logits.float(), dim=-1)
         return torch.multinomial(
             probs, n, replacement=True, generator=self._gen(site, **ctx)
         )
 
-    def dirichlet(self, site: str, alpha: float, shape, **ctx) -> torch.Tensor:
-        """(C, K) Dirichlet(alpha) rows, cached per (site, context)."""
-        key = (site, tuple(shape), float(alpha), tuple(sorted(ctx.items())))
-        hit = self._cache.get(key)
-        if hit is None:
-            log_g = _log_gamma_sample(
-                float(alpha), tuple(shape), self._gen(site, **ctx), self.device
-            )
-            hit = self._cache[key] = torch.softmax(log_g, dim=-1)
-        return hit
+    def dirichlet(self, site: str, alpha: float, shape, *, epoch, ids=None):
+        """(C, K) Dirichlet(alpha) rows of clients ``ids`` (default
+        ``arange(C)``) at ``epoch`` (an int or a (C,) tensor), counter-based.
+        The dense block (no ``ids``, an int epoch) is cached."""
+        key = None
+        if ids is None and isinstance(epoch, int):
+            key = (site, tuple(shape), float(alpha), epoch)
+            if key in self._cache:
+                return self._cache[key]
+        n, k = shape
+        t = _GAMMA_TRIES
+        u = self._counter_uniform(site, self._ids(ids, n), epoch, 3 * t * k + k)
+        u1, u2, ua = (u[:, i * t * k:(i + 1) * t * k].reshape(n, t, k) for i in range(3))
+        # Box-Muller normals for the Marsaglia-Tsang candidates.
+        x = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+        out = torch.softmax(_log_gamma(float(alpha), x, ua, u[:, 3 * t * k:]), dim=-1)
+        if key is not None:
+            self._cache[key] = out
+        return out
 
 
-def _log_gamma_sample(alpha, shape, g, device, tries: int = 16):
-    """log Gamma(alpha, 1) by Marsaglia–Tsang, without host syncs.
+def _log_gamma(alpha, x, u, u_boost):
+    """log Gamma(alpha, 1) by Marsaglia–Tsang from (n, tries, K) standard
+    normals ``x`` and uniforms ``u``, without host syncs.
 
-    A fixed number of candidates is drawn and the first accepted one is
-    taken (acceptance is ≥ 0.95 per try for a ≥ 1, so 16 tries fail with
-    probability < 1e-20). alpha < 1 uses the boost
-    Gamma(a) = Gamma(a + 1) · U^(1/a), kept in log space so that tiny
-    values do not underflow before the Dirichlet normalisation.
+    The first accepted of the ``tries`` candidates is taken (acceptance is
+    ≥ 0.95 per try for a ≥ 1, so 16 tries fail with probability < 1e-20).
+    alpha < 1 uses the boost Gamma(a) = Gamma(a + 1) · U^(1/a) with the
+    (n, K) uniforms ``u_boost``, kept in log space so that tiny values do
+    not underflow before the Dirichlet normalisation.
     """
     a = alpha + 1.0 if alpha < 1.0 else alpha
     d = a - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
-    x = torch.randn((tries,) + shape, generator=g, device=device)
-    u = torch.rand((tries,) + shape, generator=g, device=device)
     v = torch.clamp((1.0 + c * x) ** 3, min=1e-30)
     ok = (1.0 + c * x > 0) & (
         torch.log(torch.clamp(u, min=1e-38))
         < 0.5 * x * x + d - d * v + d * torch.log(v)
     )
-    first = ok.to(torch.int8).argmax(dim=0, keepdim=True)
-    log_g = math.log(d) + torch.log(v.gather(0, first).squeeze(0))
+    first = ok.to(torch.int8).argmax(dim=1, keepdim=True)
+    log_g = math.log(d) + torch.log(v.gather(1, first).squeeze(1))
     if alpha < 1.0:
-        u2 = torch.rand(shape, generator=g, device=device)
-        log_g = log_g + torch.log(torch.clamp(u2, min=1e-38)) / alpha
+        log_g = log_g + torch.log(torch.clamp(u_boost, min=1e-38)) / alpha
     return log_g

@@ -1,10 +1,13 @@
 """Where one round of the port's main path spends its time on the card.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_round [--rounds 10]
+        [--population M] [--fog-nodes F]
 
 Builds ``FedFogSimulator(SimulatorConfig(use_pallas_agg=True))`` on CUDA
-at the default (64-client, 112,766-parameter) configuration, runs two
-warm-up rounds, then measures passes of ``--rounds`` rounds:
+at the default (64-client, 112,766-parameter) configuration, or with a
+population of M virtual clients sampled down to that cohort and F fog
+aggregators, runs two warm-up rounds, then measures passes of
+``--rounds`` rounds:
 
   * three unprofiled passes: the host clock around each pass, ending in a
     synchronise (three, so the host's spread within one call shows);
@@ -61,6 +64,7 @@ def _kernel_profile(sim, state, rounds, top):
             kernels.setdefault(e.name, []).append(e.device_time_total / 1e3)
     device_ms = sum(sum(v) for v in kernels.values()) / n
     ranked = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:top]
+    # K3 and K4 are the two instantiations of fedavg_kernel.
     k3 = sum(sum(v) for k, v in kernels.items() if "fedavg_kernel" in k) / n
     measured = bool(kernels)
     return state, {
@@ -91,6 +95,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--population", type=int, default=None)
+    ap.add_argument("--fog-nodes", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA device")
@@ -99,7 +105,9 @@ def main() -> int:
 
     n = args.rounds
     sim = FedFogSimulator(
-        SimulatorConfig(rounds=2 + 4 * n, use_pallas_agg=True), device="cuda"
+        SimulatorConfig(rounds=2 + 4 * n, use_pallas_agg=True,
+                        population=args.population, fog_nodes=args.fog_nodes),
+        device="cuda",
     )
     state = (sim.params, sim.sched_state, sim.telemetry)
     state, _ = _wall_ms(sim, state, range(2))  # warm-up
@@ -111,6 +119,8 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "rounds": n,
+        "population": sim.population,
+        "fog_nodes": args.fog_nodes,
         "wall_ms_per_round_by_pass": wall_ms,
         "peak_bytes": torch.cuda.max_memory_allocated(),
         "phase_guard_us_unprofiled": _phase_guard_us(),

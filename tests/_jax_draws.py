@@ -10,8 +10,14 @@ the JAX package can be held against each other on identical data:
     priors, drift permutation), ``+ 30`` / ``+ 31`` (profiles, telemetry),
     ``+ 40`` / ``+ 41`` (data sizes, attacker placement);
   * per round: ``PRNGKey(seed + 100)`` split once per round, then the
-    6-way split ``(sel, data, attack, dp, tel, eval)``; client ``c``'s
-    batch uses ``split(k_data, n)[c]`` → ``split(fold_in(., c))``.
+    6-way split ``(sel, data, attack, dp, tel, eval)`` and the population
+    cohort's ``fold_in(k, 7)``; the client at cohort position ``i`` with
+    id ``c`` draws its batch from ``split(k_data, n)[i]`` →
+    ``split(fold_in(., c))``.
+
+Every per-client draw takes ``ids``, the client ids of the rows, which
+default to ``arange(n)`` (the dense registry); the prior and the drift
+flags and permutation also take per-client epochs.
 
 Blocks come back as CPU torch tensors.
 """
@@ -31,35 +37,47 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def _ids(ids, n):
+    if ids is None:
+        return jnp.arange(n, dtype=jnp.int32)
+    return jnp.asarray(np.asarray(ids), jnp.int32)
+
+
+def _per_client(x, n):
+    """An int or a tensor of per-client values -> an (n,) int32 array."""
+    x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+    return jnp.broadcast_to(jnp.asarray(x, jnp.int32), (n,))
+
+
 @functools.partial(jax.jit, static_argnames=("n_draw",))
-def _client_labels(k_data, logits, n_draw):
+def _client_labels(k_data, logits, n_draw, cids):
     n = logits.shape[0]
 
     def one(key, cid, lg):
         k1, _ = jax.random.split(jax.random.fold_in(key, cid))
         return jax.random.categorical(k1, lg, shape=(n_draw,))
 
-    return jax.vmap(one)(jax.random.split(k_data, n), jnp.arange(n), logits)
+    return jax.vmap(one)(jax.random.split(k_data, n), cids, logits)
 
 
-@functools.partial(jax.jit, static_argnames=("n", "n_draw", "dim"))
-def _client_noise(k_data, n, n_draw, dim):
+@functools.partial(jax.jit, static_argnames=("n_draw", "dim"))
+def _client_noise(k_data, n_draw, dim, cids):
     def one(key, cid):
         _, k2 = jax.random.split(jax.random.fold_in(key, cid))
         return jax.random.normal(k2, (n_draw, 28, 28)).reshape(n_draw, dim)
 
-    return jax.vmap(one)(jax.random.split(k_data, n), jnp.arange(n))
+    return jax.vmap(one)(jax.random.split(k_data, cids.shape[0]), cids)
 
 
-@functools.partial(jax.jit, static_argnames=("n", "k"))
-def _priors(seed, epoch, alpha, n, k):
-    def one(c):
+@functools.partial(jax.jit, static_argnames=("k",))
+def _priors(seed, cids, epochs, alpha, k):
+    def one(c, e):
         key = jax.random.fold_in(
-            jax.random.fold_in(jax.random.PRNGKey(seed + 12), c), epoch
+            jax.random.fold_in(jax.random.PRNGKey(seed + 12), c), e
         )
         return jax.random.dirichlet(key, jnp.full((k,), alpha))
 
-    return jax.vmap(one)(jnp.arange(n))
+    return jax.vmap(one)(cids, epochs)
 
 
 class JaxDraws:
@@ -76,6 +94,7 @@ class JaxDraws:
             for _ in range(r + 1):
                 key, k = jax.random.split(key)
             self._rounds[r] = dict(zip(_ROUND_KEYS, jax.random.split(k, 6)))
+            self._rounds[r]["cohort"] = jax.random.fold_in(k, 7)
         return self._rounds[r][name]
 
     def _init_key(self, offset: int, index: int | None = None, parts: int = 0):
@@ -84,7 +103,7 @@ class JaxDraws:
 
     # ------------------------------------------------------------------ #
     def normal(self, site, shape, *, segments=None, round=None, index=None,
-               epoch=None):
+               epoch=None, ids=None):
         shape = tuple(shape)
         if site == "init.mlp":
             key = jax.random.PRNGKey(self.seed)
@@ -99,7 +118,8 @@ class JaxDraws:
             return _t(jax.random.normal(self._init_key(30, profiles[site], 5), shape))
         if site == "client_batch.noise":
             n, n_draw, dim = shape
-            return _t(_client_noise(self.round_key(round, "data"), n, n_draw, dim))
+            return _t(_client_noise(self.round_key(round, "data"), n_draw, dim,
+                                    _ids(ids, n)))
         if site == "eval.noise":
             _, k2 = jax.random.split(self.round_key(round, "eval"))
             b, dim = shape
@@ -128,6 +148,11 @@ class JaxDraws:
             key = self._init_key(30, 0, 5)
         elif site == "eval.labels":
             key, _ = jax.random.split(self.round_key(round, "eval"))
+        elif site == "cohort":
+            hi = jnp.asarray(np.asarray(high), jnp.int32)
+            return _t(jax.random.randint(
+                self.round_key(round, "cohort"), tuple(shape), jnp.zeros_like(hi), hi
+            )).to(torch.int64)
         else:
             raise KeyError(site)
         return _t(jax.random.randint(key, tuple(shape), 0, high)).to(torch.int64)
@@ -135,6 +160,12 @@ class JaxDraws:
     def permutation(self, site, n, *, round=None, epoch=None):
         if site == "malicious":
             key = self._init_key(41)
+        elif site == "drift.perm" and isinstance(epoch, torch.Tensor):
+            e = _per_client(epoch, epoch.shape[0])
+            base = jax.random.PRNGKey(self.seed + 13)
+            return _t(jax.vmap(
+                lambda x: jax.random.permutation(jax.random.fold_in(base, x), n)
+            )(e)).to(torch.int64)
         elif site == "drift.perm":
             key = jax.random.fold_in(jax.random.PRNGKey(self.seed + 13), epoch)
         elif site == "rcs.perm":
@@ -143,20 +174,24 @@ class JaxDraws:
             raise KeyError(site)
         return _t(jax.random.permutation(key, n)).to(torch.int64)
 
-    def bernoulli(self, site, p, shape, *, epoch):
+    def bernoulli(self, site, p, shape, *, epoch, ids=None):
         assert site == "drift.flags", site
-        dk = jax.random.fold_in(jax.random.PRNGKey(self.seed + 11), epoch)
+        n = shape[0]
+        base = jax.random.PRNGKey(self.seed + 11)
         flags = jax.vmap(
-            lambda c: jax.random.bernoulli(jax.random.fold_in(dk, c), p)
-        )(jnp.arange(shape[0]))
+            lambda c, e: jax.random.bernoulli(
+                jax.random.fold_in(jax.random.fold_in(base, e), c), p)
+        )(_ids(ids, n), _per_client(epoch, n))
         return _t(flags)
 
-    def dirichlet(self, site, alpha, shape, *, epoch):
+    def dirichlet(self, site, alpha, shape, *, epoch, ids=None):
         assert site == "prior", site
         n, k = shape
-        return _t(_priors(self.seed, epoch, alpha, n, k))
+        return _t(_priors(self.seed, _ids(ids, n), _per_client(epoch, n), alpha, k))
 
-    def categorical(self, site, logits, n, *, round):
+    def categorical(self, site, logits, n, *, round, ids=None):
         assert site == "client_batch.labels", site
         lg = jnp.asarray(logits.detach().cpu().numpy())
-        return _t(_client_labels(self.round_key(round, "data"), lg, n)).to(torch.int64)
+        cids = _ids(ids, lg.shape[0])
+        return _t(_client_labels(self.round_key(round, "data"), lg, n, cids)).to(
+            torch.int64)

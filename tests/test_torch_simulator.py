@@ -144,8 +144,8 @@ def test_production_run_trains():
 @pytest.mark.parametrize(
     "override",
     [dict(task="har"), dict(attack="noise", attack_fraction=0.2),
-     dict(population=128), dict(fog_nodes=2), dict(faults=object())],
-    ids=["har", "attack", "population", "fog", "faults"],
+     dict(faults=object())],
+    ids=["har", "attack", "faults"],
 )
 def test_unported_configurations_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
