@@ -6,8 +6,9 @@
 Phases, one line of output each (any failure raises and exits non-zero):
 
   1. device   — the card's name, device count, nvidia-smi name and power limit;
-  2. build    — nvcc builds the delta-pipeline kernels from csrc/ (seconds,
-                and the -Xptxas -v register / shared-memory report);
+  2. build    — one nvcc per kernel source, all started together: the
+                delta-pipeline kernels (K2, K3, K4), K5 and K7 (seconds, and
+                the -Xptxas -v register / shared-memory report);
   3. kernels  — K2 (delta_sq_norms) and K3 (delta_pipeline_apply) held
                 against their plain PyTorch versions on the card, at the
                 slice's shape (C=64, P=112,766 in the MLP's six leaves) and a
@@ -16,7 +17,15 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 112,766), (64, 112,766) and a ragged (16, 1,000), gates none /
                 clip (with K2) / int8 / top-k; then K2, K3 and K4 timed at the
                 main path's shapes beside the plain version, the byte bound
-                and one PyTorch library call;
+                and one PyTorch library call; K5 (flash_attention_fwd) held
+                against its plain version at the serving prefill's shape
+                (B=1, H=32, Hkv=8, S=128, hd=64, bf16) and at edge shapes
+                (window, bidirectional, GQA 4 and 1, Sq < Sk, ragged tiles,
+                hd 128 and 16, float32), K7 (paged_attention_fwd) at the
+                decode step's shape (8 slots of 129..160 tokens, page 16) and
+                at edge shapes (ragged and empty slots, windows, trash-page
+                table entries, g 1 and 2); then both timed at the slice's
+                shapes beside the plain version, the bound and SDPA;
   4. slices   — the port's main paths through FedFogSimulator(...,
                 device="cuda").run_scanned(), launch counts set to 0 just
                 before each run and read just after:
@@ -32,6 +41,18 @@ Phases, one line of output each (any failure raises and exits non-zero):
                   M = 10^6, ms/round and peak bytes printed; then 3 rounds at
                   population 10^6 with one fog (K3 three times) and 3 dense
                   rounds with four fogs (K4 twelve times);
+                serving: ContinuousBatchingEngine for full-width llama3.2-1b
+                in bf16 (random weights from a seed), attn_impl "flash" and
+                attn "paged", 8 slots of 16-token pages, 128-token prompts,
+                16 requests at 20 per virtual second generating 4..32
+                tokens, after the dense-mode engine on the same trace: every
+                request completed, slot conservation, tokens in [0, vocab),
+                K5 16 launches per admission, K7 16 per decode step, K2-K4
+                none; prefill tokens equal to the dense engine's and the
+                first decode step's logits within LOGITS_RTOL of it; the
+                share of requests with the dense engine's tokens, wall ms
+                per admission and per decode step, init s and peak bytes
+                printed;
   5. result   — the kernels' JSON line, nvidia-smi's line and, last,
                 {"ok": true, "device": {...}}.
 
@@ -53,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 # outside the tensor cores (both kernels do float32 FMAs on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate; K5/K7 inputs are bf16
 # Six leaves of the 784-128-64-62 MLP in fused order ([b, w] per layer).
 SLICE_SEGS = (128, 784 * 128, 64, 128 * 64, 62, 64 * 62)
 RAGGED_SEGS = (41, 8, 64, 17)
@@ -346,6 +368,337 @@ def phase_kernels(torch, dp):
     ]
 
 
+# ---- K5 (flash-attention forward) and K7 (paged decode attention) ------ #
+# Shapes of the serving slice: llama3.2-1b's 32 query / 8 kv heads of 64,
+# a 128-token prompt in one prefill (B = 1), 8 slots of 16-token pages.
+LLAMA = dict(h=32, hkv=8, hd=64)
+PROMPT, SLOTS, PAGE, MAX_GEN = 128, 8, 16, 32
+# (name, B, H, Hkv, Sq, Sk, hd, window (kernel convention, 0 = global),
+# bidirectional, dtype)
+K5_CASES = [
+    ("slice", 1, 32, 8, PROMPT, PROMPT, 64, 0, False, "bfloat16"),
+    ("window", 1, 32, 8, PROMPT, PROMPT, 64, 48, False, "bfloat16"),
+    ("bidirectional", 1, 32, 8, PROMPT, PROMPT, 64, 0, True, "bfloat16"),
+    ("gqa1", 2, 8, 8, 96, 96, 64, 0, False, "bfloat16"),
+    ("sq<sk, ragged tiles", 1, 32, 8, 40, 200, 64, 0, False, "bfloat16"),
+    ("ragged, window, hd 128", 2, 4, 1, 77, 77, 128, 20, False, "bfloat16"),
+    ("float32", 1, 8, 2, 64, 64, 64, 0, False, "float32"),
+    ("float32, hd 16, ragged", 1, 4, 2, 33, 33, 16, 0, False, "float32"),
+]
+# (name, slots, Hkv, g, hd, page, pages per slot, window (model convention,
+# -1 = global), dtype, lengths or None for the slice's 129..160)
+K7_CASES = [
+    ("slice", SLOTS, 8, 4, 64, PAGE, 10, -1, "bfloat16", None),
+    ("ragged, empty slots", SLOTS, 8, 4, 64, PAGE, 10, -1, "bfloat16",
+     [0, 1, 16, 17, 0, 160, 95, 33]),
+    ("window", SLOTS, 8, 4, 64, PAGE, 10, 40, "bfloat16", None),
+    ("gqa1, hd 128", 3, 1, 1, 128, 16, 2, -1, "float32", [5, 32, 0]),
+    ("window < page span", 5, 2, 2, 64, 4, 5, 6, "float32", [20, 3, 0, 11, 7]),
+    ("gqa2, window", 4, 2, 2, 64, 8, 4, 12, "bfloat16", [32, 9, 1, 25]),
+]
+# bf16 outputs: the kernel and the plain version both compute in float32
+# and round once to bf16, in another order; they may land one bf16 step
+# (2^-7 relative) apart. float32: summation order only.
+ATTN_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-5, 1e-5)}
+
+
+def attn_err(torch, out, ref, dtype, what):
+    rtol, atol = ATTN_TOL[dtype]
+    o, r = out.float(), ref.float()
+    check(bool(torch.isfinite(o).all()), f"{what}: non-finite output")
+    err = float((o - r).abs().max())
+    bad = (o - r).abs() > atol + rtol * r.abs()
+    check(not bool(bad.any()), f"{what}: max_abs_err {err} beyond {atol} + {rtol}|ref|")
+    return err
+
+
+def paged_inputs(torch, s, hkv, g, hd, page, n, dtype, lengths, seed, dev):
+    """Pools with every page filled (trash page 0 and stale pages too),
+    a page table of shuffled physical pages whose entries past each slot's
+    live pages name the trash page 0, and the lengths."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f = dict(generator=gen, device=dev)
+    dt = getattr(torch, dtype)
+    q = torch.randn((s, hkv * g, hd), **f).to(dt)
+    kp = torch.randn((s * n + 1, page, hkv, hd), **f).to(dt)
+    vp = torch.randn((s * n + 1, page, hkv, hd), **f).to(dt)
+    if lengths is None:
+        lengths = (torch.randint(PROMPT + 1, PROMPT + MAX_GEN + 1, (s,), **f)).tolist()
+    perm = torch.randperm(s * n, **f) + 1
+    table = torch.zeros((s, n), dtype=torch.int32, device=dev)
+    for i, ln in enumerate(lengths):
+        live = -(-ln // page)
+        table[i, :live] = perm[i * n:i * n + live].int()
+    return q, kp, vp, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def phase_attention_kernels(torch):
+    """K5 and K7 against their plain versions at every case, then timed at
+    the slice's shapes. Returns their dicts for the JSON line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import (gather_pages, paged_attention,
+                                                     paged_attention_ref)
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda
+
+    dev = torch.device("cuda")
+    errs = {"flash_attention_fwd": 0.0, "paged_attention_fwd": 0.0}
+    for i, (name, b, h, hkv, sq, sk, hd, win, bidir, dtype) in enumerate(K5_CASES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(100 + i)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt) for shape in
+                   ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+        # the model layout through ops (the main path), and the Pallas
+        # layout's contiguous (B, H, S, hd) tensors as strided views, both
+        # against the plain version
+        out = flash_attention(q, k, v, window=win if win > 0 else -1, bidirectional=bidir)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out_t = flash_attention_cuda(*(x.transpose(1, 2) for x in (qt, kt, vt)),
+                                     window=win, bidirectional=bidir)
+        ref = flash_attention_ref(qt, kt, vt, window=win, bidirectional=bidir)
+        torch.cuda.synchronize()
+        e1 = attn_err(torch, out.transpose(1, 2), ref, dtype, f"flash {name} (model layout)")
+        e2 = attn_err(torch, out_t.transpose(1, 2), ref, dtype, f"flash {name} (strided)")
+        rtol, atol = ATTN_TOL[dtype]
+        say("kernels", kernel="flash_attention_fwd", case=repr(name), B=b, H=h, Hkv=hkv,
+            Sq=sq, Sk=sk, hd=hd, window=win, bidirectional=bidir, dtype=dtype,
+            max_abs_err=max(e1, e2), atol=atol, rtol=rtol)
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], e1, e2)
+    for i, (name, s, hkv, g, hd, page, n, win, dtype, lengths) in enumerate(K7_CASES):
+        q, kp, vp, table, lens = paged_inputs(torch, s, hkv, g, hd, page, n, dtype,
+                                              lengths, 200 + i, dev)
+        out = paged_attention(q, kp, vp, table, lens, win)
+        # The plain version (gather + attention_decode) runs in the model
+        # dtype and so rounds the scores and the softmax weights to bf16,
+        # where the kernel keeps both in float32. Held here: the plain
+        # version on the same values in float32, rounded once to bf16.
+        # Printed beside it: the distance to the plain version in bf16.
+        ref = paged_attention_ref(q.float(), kp.float(), vp.float(), table, lens,
+                                  win).to(q.dtype)
+        ref_lp = paged_attention_ref(q, kp, vp, table, lens, win)
+        torch.cuda.synchronize()
+        err = attn_err(torch, out, ref, dtype, f"paged {name}")
+        check(bool((out[lens == 0] == 0).all()), f"paged {name}: empty slot not zero")
+        rtol, atol = ATTN_TOL[dtype]
+        say("kernels", kernel="paged_attention_fwd", case=repr(name), slots=s, Hkv=hkv,
+            g=g, hd=hd, page=page, pages_per_slot=n, window=win, dtype=dtype,
+            lengths=lens.tolist(), max_abs_err=err, atol=atol, rtol=rtol,
+            max_abs_diff_to_plain_in_model_dtype=float((out.float() - ref_lp.float()).abs().max()))
+        errs["paged_attention_fwd"] = max(errs["paged_attention_fwd"], err)
+
+    # ---- timing at the slice's shapes
+    h, hkv, hd = LLAMA["h"], LLAMA["hkv"], LLAMA["hd"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
+               ((1, PROMPT, h, hd), (1, PROMPT, hkv, hd), (1, PROMPT, hkv, hd)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    n_tab = -(-(PROMPT + MAX_GEN) // PAGE)
+    pq, kp, vp, table, lens = paged_inputs(torch, SLOTS, hkv, h // hkv, hd, PAGE, n_tab,
+                                           "bfloat16", None, 8, dev)
+    kg = gather_pages(kp, table).transpose(1, 2).contiguous()  # (S, Hkv, n*page, hd)
+    vg = gather_pages(vp, table).transpose(1, 2).contiguous()
+    kmask = (torch.arange(n_tab * PAGE, device=dev)[None, :] < lens[:, None].long())
+    kmask = kmask[:, None, None, :]  # (S, 1, 1, n*page)
+    t = {
+        "k5": cuda_ms(lambda i: flash_attention_cuda(q, k, v), 400),
+        "k5_plain": cuda_ms(lambda i: flash_attention_ref(qt, kt, vt), 100),
+        "k5_lib": cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 400),
+        "k7": cuda_ms(lambda i: paged_attention_cuda(pq, kp, vp, table, lens), 400),
+        "k7_plain": cuda_ms(lambda i: paged_attention_ref(pq, kp, vp, table, lens), 100),
+        "k7_lib": cuda_ms(lambda i: F.scaled_dot_product_attention(
+            pq[:, :, None], kg, vg, attn_mask=kmask, enable_gqa=True), 400),
+    }
+    el = 2  # bytes per bf16 element
+    k5_bytes = el * (2 * PROMPT * h * hd + 2 * PROMPT * hkv * hd)  # q, out; k, v
+    pairs = PROMPT * (PROMPT + 1) // 2  # causal (q, k) pairs per head
+    k5_ops = 4 * h * pairs * hd  # q·k and p·v, 2 operations per FMA
+    live = int(lens.sum())  # keys the lengths make live, over all slots
+    k7_bytes = (el * (2 * live * hkv * hd + 2 * SLOTS * h * hd)
+                + 4 * (SLOTS * n_tab + SLOTS))  # k, v; q, out; table, lengths
+    k7_ops = 4 * live * h * hd
+    by5 = (k5_bytes / HBM_BYTES_PER_S, k5_ops / BF16_FLOP_PER_S)
+    by7 = (k7_bytes / HBM_BYTES_PER_S, k7_ops / BF16_FLOP_PER_S)
+    b5, b7 = max(by5) * 1e3, max(by7) * 1e3
+    say("timing", kernel="flash_attention_fwd", B=1, H=h, Hkv=hkv, S=PROMPT, hd=hd,
+        dtype="bfloat16", ms=t["k5"], plain_ms=t["k5_plain"], library_ms=t["k5_lib"],
+        library="F.scaled_dot_product_attention(is_causal, enable_gqa)", bound_ms=b5,
+        bytes=k5_bytes, operations=k5_ops, share_of_bound=b5 / t["k5"])
+    say("timing", kernel="paged_attention_fwd", slots=SLOTS, Hkv=hkv, g=h // hkv, hd=hd,
+        page=PAGE, lengths=lens.tolist(), dtype="bfloat16", ms=t["k7"],
+        plain_ms=t["k7_plain"], library_ms=t["k7_lib"],
+        library="F.scaled_dot_product_attention over the pre-gathered cache",
+        bound_ms=b7, bytes=k7_bytes, operations=k7_ops, share_of_bound=b7 / t["k7"])
+    return [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:146",
+         "launches": None, "on_main_path": True,
+         "max_abs_err": errs["flash_attention_fwd"], "ms": t["k5"],
+         "plain_ms": t["k5_plain"], "bound_ms": b5,
+         "bound_by": "bytes" if by5[0] >= by5[1] else "operations",
+         "library_ms": t["k5_lib"]},
+        {"name": "paged_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/paged_attention.py:159",
+         "launches": None, "on_main_path": True,
+         "max_abs_err": errs["paged_attention_fwd"], "ms": t["k7"],
+         "plain_ms": t["k7_plain"], "bound_ms": b7,
+         "bound_by": "bytes" if by7[0] >= by7[1] else "operations",
+         "library_ms": t["k7_lib"]},
+    ]
+
+
+# ---- the serving slice: continuous batching of llama3.2-1b ------------ #
+SERVE_REQUESTS, SERVE_RATE = 16, 20.0  # the launcher's default rate
+# Paged vs dense first-decode-step logits: both run the same bf16 model
+# and differ only in the decode attention (K7 keeps the softmax weights in
+# float32, the dense path rounds them to bf16 before p·v), an error of a
+# few bf16 steps per layer carried through 16 residual layers.
+LOGITS_RTOL = 0.05  # of the dense logits' max |value|
+
+
+def attention_counts(k5, k7, cu):
+    return {"flash_attention_fwd": k5.launches, "paged_attention_fwd": k7.launches,
+            "delta_sq_norms": cu.delta_sq_norms_cuda.launches,
+            "delta_pipeline_apply": cu.launch_pipeline.launches,
+            "delta_pipeline_partial": cu.launch_partial.launches}
+
+
+def zero_counts(k5, k7, cu):
+    k5.launches = 0
+    k7.launches = 0
+    cu.delta_sq_norms_cuda.launches = 0
+    cu.launch_pipeline.launches = 0
+    cu.launch_partial.launches = 0
+
+
+def phase_serving(torch, cu):
+    """The port's serving path: ContinuousBatchingEngine for full-width
+    llama3.2-1b in bf16 on the card, prefill through K5 (attn_impl
+    "flash") and decode through K7 (attn "paged"), after the dense-mode
+    engine on the same trace. Returns the paged run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda as k5
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda as k7
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.random import TorchDraws
+    from repro_torch.serve import (ContinuousBatchingEngine, EngineConfig, TraceConfig,
+                                   make_trace, paged)
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trace = make_trace(
+        TorchDraws(1, "cpu"),
+        TraceConfig(n_requests=SERVE_REQUESTS, rate_per_s=SERVE_RATE, prompt_len=PROMPT,
+                    min_gen=4, max_gen=MAX_GEN),
+        cfg)
+    ecfg = EngineConfig(slots=SLOTS, page_size=PAGE, prompt_len=PROMPT, max_gen=MAX_GEN,
+                        max_requests=SERVE_REQUESTS)
+    say("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, vocab=cfg.vocab_size,
+        params=model.param_count(), dtype=cfg.param_dtype, init_s=init_s,
+        requests=SERVE_REQUESTS, rate_per_s=SERVE_RATE, slots=SLOTS, page=PAGE,
+        prompt=PROMPT, gen_len=trace.gen_len.tolist())
+
+    dense = ContinuousBatchingEngine(model, params, ecfg).serve(trace)  # also warms up
+    engine = ContinuousBatchingEngine(model, params, dataclasses.replace(ecfg, attn="paged"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(k5, k7, cu)
+    rep = engine.serve(trace)
+    torch.cuda.synchronize()
+    launches = attention_counts(k5, k7, cu)
+    peak = torch.cuda.max_memory_allocated()
+    check(rep.completed == SERVE_REQUESTS and rep.rejected == 0,
+          f"{rep.completed} of {SERVE_REQUESTS} requests completed")
+    check(dense.completed == SERVE_REQUESTS, "dense engine left requests unserved")
+    c = rep.counters
+    check(c["arrived"] == c["completed"] + c["rejected"] + c["in_flight"] + c["waiting"],
+          f"slot conservation: {c}")
+    for r in (rep, dense):
+        for req in range(SERVE_REQUESTS):
+            toks = r.tokens_for(req)
+            check(len(toks) == int(trace.gen_len[req]), f"request {req}: {len(toks)} tokens")
+            check(all(0 <= x < cfg.vocab_size for x in toks), f"request {req}: token out of range")
+    expect_launches(launches, flash_attention_fwd=cfg.num_layers * rep.prefills,
+                    paged_attention_fwd=cfg.num_layers * rep.decode_steps,
+                    delta_sq_norms=0, delta_pipeline_apply=0, delta_pipeline_partial=0)
+    same = sum(rep.tokens_for(i) == dense.tokens_for(i) for i in range(SERVE_REQUESTS))
+    # Both engines prefill through the same K5 path: their first tokens agree.
+    check(all(rep.tokens_for(i)[0] == dense.tokens_for(i)[0] for i in range(SERVE_REQUESTS)),
+          "paged and dense engines differ in a prefill token")
+
+    # First decode step of a full slot batch, paged vs dense, on one pool;
+    # then wall time per admission and per decode step (host clock around
+    # synchronised runs; these launches are outside the counted run).
+    plan = engine.plan
+    pool = paged.init_pool(cfg, plan, SLOTS, engine.num_pages, device=dev)
+    tokens = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
+    out_buf = torch.zeros((SERVE_REQUESTS + 1, MAX_GEN), dtype=torch.int32, device=dev)
+    prompts = torch.from_numpy(trace.prompts).to(dev)
+    admit = paged.make_admit_fn(model, plan)
+    n_tab = plan.pages_per_slot
+    table = torch.arange(1, SLOTS * n_tab + 1, dtype=torch.int32, device=dev).reshape(SLOTS, n_tab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for slot in range(SLOTS):
+        admit(params, pool, tokens, out_buf, prompts[slot:slot + 1],
+              table[slot, :plan.prompt_pages].long(), slot, slot)
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) / SLOTS * 1e3
+    positions = torch.full((SLOTS,), plan.prompt_eff, dtype=torch.int64, device=dev)
+    active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
+    logits = {}
+    for mode in ("dense", "paged"):
+        logits[mode], _ = paged._paged_transformer_step(
+            params, cfg, plan, {k: x.clone() for k, x in pool.items()}, tokens, table,
+            positions, active, Runtime(), mode)
+    torch.cuda.synchronize()
+    diff = float((logits["paged"] - logits["dense"]).abs().max())
+    scale = float(logits["dense"].abs().max())
+    check(diff <= LOGITS_RTOL * scale,
+          f"paged vs dense first-step logits: {diff} > {LOGITS_RTOL} x {scale}")
+    step = paged.make_decode_fn(model, plan, attn="paged")
+    out_req = torch.full((SLOTS,), SERVE_REQUESTS, dtype=torch.int64, device=dev)
+    out_idx = torch.zeros((SLOTS,), dtype=torch.int64, device=dev)
+    n_steps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        pool, tokens, out_buf = step(params, pool, tokens, out_buf, table, positions + i,
+                                     active, out_req, out_idx)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    say("serve", engine="continuous", attn="paged", attn_impl=cfg.attn_impl,
+        completed=rep.completed, rejected=rep.rejected, prefills=rep.prefills,
+        decode_steps=rep.decode_steps, tokens=rep.tokens_generated, counters=c,
+        launches=launches, wall_s=rep.wall_s, tokens_per_wall_s=rep.tokens_per_wall_s,
+        virtual_ms=rep.virtual_ms, p50_ms=rep.percentiles["p50"], peak_bytes=peak)
+    say("serve", dense_wall_s=dense.wall_s, dense_decode_steps=dense.decode_steps,
+        share_of_requests_with_dense_tokens=same / SERVE_REQUESTS,
+        first_step_logits_max_abs_diff=diff, dense_logits_max_abs=scale,
+        tol=f"{LOGITS_RTOL} x max|dense|", wall_ms_per_admission=admit_ms,
+        wall_ms_per_decode_step=decode_ms, first_request_tokens=rep.tokens_for(0))
+    return launches
+
+
 def run_slice(torch, cu, sim_mod, rounds, **overrides):
     """Drive a main path of the port: build the simulator, set the launch
     counts to 0, run ``run_scanned()``, read the counts. Returns (history,
@@ -400,19 +753,35 @@ def main() -> int:
         say("device", note=f"power limit {limit_w} W is below the 700 W at which "
             "the 3.35 TB/s of the byte bounds is specified")
 
-    # 2. build
+    # The plain versions are the reference: float32 products in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 2. build: one nvcc per kernel source, all started together
+    from repro_torch.kernels import _build
     from repro_torch.kernels import delta_pipeline as dp
     from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+    from repro_torch.kernels.flash_attention.flash_attention import LIBRARY as FA_LIB
+    from repro_torch.kernels.flash_attention.flash_attention import SOURCE as FA_SRC
+    from repro_torch.kernels.flash_attention.flash_attention import library as fa_library
+    from repro_torch.kernels.paged_attention.paged_attention import LIBRARY as PA_LIB
+    from repro_torch.kernels.paged_attention.paged_attention import SOURCE as PA_SRC
+    from repro_torch.kernels.paged_attention.paged_attention import library as pa_library
 
-    kl = cu.library()
-    ptxas = [ln.strip() for ln in kl.log_path.read_text().splitlines()
-             if "registers" in ln or "bytes stack" in ln or "Compiling entry" in ln]
-    say("build", library=kl.path.name, seconds=kl.build_seconds)
-    for ln in ptxas:
-        print(f"[build] ptxas {ln}", flush=True)
+    t0 = time.perf_counter()
+    _build.build_libraries({"fedfog_delta_pipeline": [cu.SOURCE], FA_LIB: [FA_SRC],
+                            PA_LIB: [PA_SRC]})
+    say("build", libraries=3, wall_s=time.perf_counter() - t0)
+    for kl in (cu.library(), fa_library(), pa_library()):
+        ptxas = [ln.strip() for ln in kl.log_path.read_text().splitlines()
+                 if "registers" in ln or "bytes stack" in ln or "Compiling entry" in ln]
+        say("build", library=kl.path.name, seconds=kl.build_seconds)
+        for ln in ptxas:
+            print(f"[build] ptxas {ln}", flush=True)
 
     # 3. kernels against their plain versions, then timing
     kernels = phase_kernels(torch, dp)
+    kernels += phase_attention_kernels(torch)
 
     # 4. the slices: the port's main paths
     from repro_torch.fl import simulator as sim_mod
@@ -462,6 +831,11 @@ def main() -> int:
         expect_launches(ln, **want)
         say("slice", path=repr(name), rounds=3, launches=ln, init_s=ini,
             ms_per_round=sec / 3 * 1e3, accuracy=[round(a, 4) for a in h["accuracy"]])
+
+    # the serving slice: K5 per admission, K7 per decode step
+    launches = phase_serving(torch, cu)
+    kernels[3]["launches"] = launches["flash_attention_fwd"]
+    kernels[4]["launches"] = launches["paged_attention_fwd"]
 
     # 5. result
     print(json.dumps({"kernels": kernels}), flush=True)

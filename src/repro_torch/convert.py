@@ -65,3 +65,37 @@ def state_from_jax(env, sched_state, telemetry, device=None):
         ))
     tel = ClientTelemetry(**_fields(telemetry, ("cpu", "mem", "batt", "energy"), device))
     return new_env, sched, tel
+
+
+def _tensor_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
+        return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return _t(a, device)
+
+
+def model_params_from_jax(cfg, params, device=None):
+    """The JAX package's LM parameter tree (``Model.init``; leaves numpy or
+    anything ``np.asarray`` takes) -> the port's, on the CUDA card unless
+    ``device`` names another. Both packages keep one layout (``wq`` as
+    (L, d, H, hd) and so on), so each leaf carries over as it is; the
+    tree is checked against the port's declarations for ``cfg``."""
+    from repro_torch.models.transformer import param_decls
+
+    device = resolve_device(device)
+    out = _tensor_tree(params, device)
+    decls = param_decls(cfg)
+
+    def check(d, t, path):
+        if set(d) != set(t):
+            raise ValueError(f"{path or 'params'}: keys {sorted(t)} != {sorted(d)}")
+        for k in d:
+            if isinstance(d[k], dict):
+                check(d[k], t[k], f"{path}/{k}")
+            elif tuple(t[k].shape) != d[k].shape:
+                raise ValueError(f"{path}/{k}: shape {tuple(t[k].shape)} != {d[k].shape}")
+
+    check(decls, out, "")
+    return out

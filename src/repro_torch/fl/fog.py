@@ -71,13 +71,18 @@ def gather_rows(rows, ids: torch.Tensor):
                          for k, v in _fields(rows).items()})
 
 
-def scatter_rows(pop, ids: torch.Tensor, rows):
-    """Write cohort ``rows`` back into the per-population dataclass ``pop``
-    in place (``index_copy_``) and return ``pop``."""
+def scatter_rows(pop, ids: torch.Tensor, rows, *, in_place: bool = False):
+    """Write cohort ``rows`` into the per-population dataclass ``pop``.
+
+    By default out of place, as JAX's ``.at[ids].set``: a new dataclass of
+    new tensors (``Tensor.index_copy``), ``pop`` unchanged. With
+    ``in_place=True`` the rows are written into ``pop``'s own tensors
+    (``index_copy_``) and ``pop`` is returned; only a caller that owns
+    ``pop`` (a run loop over its carry) may ask for that."""
     new = _fields(rows)
-    for k, v in _fields(pop).items():
-        v.index_copy_(0, ids, new[k])
-    return pop
+    copy = torch.Tensor.index_copy_ if in_place else torch.Tensor.index_copy
+    out = {k: copy(v, 0, ids, new[k]) for k, v in _fields(pop).items()}
+    return pop if in_place else type(pop)(**out)
 
 
 def gather_cohort_sched(
@@ -106,14 +111,20 @@ def scatter_cohort_sched(
     ids: torch.Tensor,
     cohort: SchedulerState,
     hist_round: int,
+    *,
+    in_place: bool = False,
 ) -> PopulationSchedulerState:
-    """Write a cohort's advanced scheduler rows back into the population
-    (in place), recording ``hist_round`` as the round its histograms
-    were taken at; unsampled clients keep their rows."""
-    for name in ("theta_e", "warm", "last_used", "energy_spent"):
-        getattr(pop, name).index_copy_(0, ids, getattr(cohort, name))
-    pop.last_hist_round.index_fill_(0, ids, int(hist_round))
-    return dataclasses.replace(pop, round_index=cohort.round_index)
+    """Write a cohort's advanced scheduler rows back into the population,
+    recording ``hist_round`` as the round its histograms were taken at;
+    unsampled clients keep their rows. Out of place by default (``pop``
+    unchanged); ``in_place=True`` writes into ``pop``'s tensors, for a
+    caller that owns them (see :func:`scatter_rows`)."""
+    copy = torch.Tensor.index_copy_ if in_place else torch.Tensor.index_copy
+    fill = torch.Tensor.index_fill_ if in_place else torch.Tensor.index_fill
+    rows = {name: copy(getattr(pop, name), 0, ids, getattr(cohort, name))
+            for name in ("theta_e", "warm", "last_used", "energy_spent")}
+    rows["last_hist_round"] = fill(pop.last_hist_round, 0, ids, int(hist_round))
+    return dataclasses.replace(pop, round_index=cohort.round_index, **rows)
 
 
 # --------------------------------------------------------------------- #

@@ -440,11 +440,15 @@ class FedFogSimulator:
         )
 
     @torch.no_grad()
-    def _round(self, env, params, sched_state, telemetry, round_idx: int):
+    def _round(self, env, params, sched_state, telemetry, round_idx: int,
+               *, in_place: bool = False):
         """One synchronous FL round: a function of its arguments and of the
         provider's draws keyed by ``round_idx``. In population mode it runs
-        at cohort size between a gather and an in-place scatter of the
-        cohort's rows of ``sched_state`` and ``telemetry``."""
+        at cohort size between a gather and a scatter of the cohort's rows
+        of ``sched_state`` and ``telemetry``. The scatter is out of place
+        unless ``in_place``: then it writes into the (M,) rows it was
+        given, which only a loop that owns them (``run``, ``run_scanned``)
+        asks for, as JAX donates its scan carry."""
         cfg = self.cfg
         data_cfg = dataclasses.replace(self.data_cfg, seed=env["data_seed"])
 
@@ -492,9 +496,10 @@ class FedFogSimulator:
             )
             if self._pop_mode:
                 new_sched = fog_mod.scatter_cohort_sched(
-                    sched_state, ids, new_sched, round_idx
+                    sched_state, ids, new_sched, round_idx, in_place=in_place
                 )
-                new_tel = fog_mod.scatter_rows(telemetry, ids, new_tel)
+                new_tel = fog_mod.scatter_rows(telemetry, ids, new_tel,
+                                               in_place=in_place)
         with _phase("eval"):
             acc = self._eval_accuracy(data_cfg, new_params, round_idx)
         metrics = {
@@ -520,7 +525,8 @@ class FedFogSimulator:
         history: dict[str, list] = {}
         params, sched, tel = self.params, self.sched_state, self.telemetry
         for r in range(rounds):
-            params, sched, tel, metrics = self._round(self.env, params, sched, tel, r)
+            params, sched, tel, metrics = self._round(
+                self.env, params, sched, tel, r, in_place=True)
             for name, v in metrics.items():
                 history.setdefault(name, []).append(float(v))
         self.params, self.sched_state, self.telemetry = params, sched, tel
@@ -535,7 +541,8 @@ class FedFogSimulator:
         params, sched, tel = self.params, self.sched_state, self.telemetry
         per_round = []
         for r in range(rounds):
-            params, sched, tel, metrics = self._round(self.env, params, sched, tel, r)
+            params, sched, tel, metrics = self._round(
+                self.env, params, sched, tel, r, in_place=True)
             per_round.append(metrics)
         self.params, self.sched_state, self.telemetry = params, sched, tel
         names = list(per_round[0]) if per_round else []

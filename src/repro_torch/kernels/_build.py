@@ -5,6 +5,8 @@ root of the checkout, in a directory keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
 is kept beside the library in ``build.log``. A failed build raises.
+:func:`build_libraries` starts one ``nvcc`` per library at once, so a
+run that needs several families pays for the slowest build only.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     log_path: Path
-    build_seconds: float | None  # None when loaded from an earlier build
+    build_seconds: float | None  # None when built by an earlier process
 
 
 def nvcc() -> str:
@@ -43,26 +45,50 @@ def nvcc() -> str:
     return found
 
 
-def load_library(name: str, sources: list[Path]) -> KernelLibrary:
-    """Build (once) and load ``lib<name>.so`` from ``sources``."""
+def _paths(name: str, sources: list[Path]) -> tuple[Path, Path, Path]:
+    """(output dir, library, build log) for ``name`` built from ``sources``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
-    so = out_dir / f"lib{name}.so"
-    log = out_dir / "build.log"
-    seconds = None
-    if not so.exists():
+    return out_dir, out_dir / f"lib{name}.so", out_dir / "build.log"
+
+
+_BUILD_SECONDS: dict[str, float] = {}
+
+
+def build_libraries(specs: dict[str, list[Path]]) -> None:
+    """Build every library of ``specs`` ({name: sources}) that is not built
+    yet, one ``nvcc`` per library, all started together. Raises on the
+    first failure, after every compiler has ended."""
+    running = []
+    for name, sources in specs.items():
+        out_dir, so, log = _paths(name, sources)
+        if so.exists():
+            continue
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f".lib{name}.{os.getpid()}.so"
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}"
-            )
-        log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        running.append((name, cmd, proc, tmp, so, log, time.perf_counter()))
+    failed = []
+    for name, cmd, proc, tmp, so, log, t0 in running:
+        out, _ = proc.communicate()
+        _BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed with code {proc.returncode}:\n{out}")
+            continue
+        log.write_text(" ".join(cmd) + "\n" + out)
         os.replace(tmp, so)
-    return KernelLibrary(ctypes.CDLL(str(so)), so, log, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str, sources: list[Path]) -> KernelLibrary:
+    """Build (once, unless :func:`build_libraries` already did) and load
+    ``lib<name>.so`` from ``sources``."""
+    _, so, log = _paths(name, sources)
+    if not so.exists():
+        build_libraries({name: sources})
+    return KernelLibrary(ctypes.CDLL(str(so)), so, log, _BUILD_SECONDS.get(name))

@@ -1,0 +1,69 @@
+"""Uniform model interface (port of ``repro/models/api.py``), DENSE
+family only for now.
+
+``build_model(cfg)`` returns a ``Model`` whose methods close over the
+config:
+
+    model.init(generator)                      -> params (on its device)
+    model.prefill(params, batch, cache_len)    -> (logits, cache)
+    model.decode_step(params, cache, tokens)   -> (logits, cache)
+    model.init_cache(batch, max_len, device)   -> cache
+    model.param_count() / active_param_count() / flops_per_token()
+
+Other families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them; so does the training loss (item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import count
+from repro_torch.models.transformer import Runtime
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, generator: torch.Generator):
+        return transformer.init_params(self.cfg, generator)
+
+    def param_count(self) -> int:
+        return count(transformer.param_decls(self.cfg))
+
+    def active_param_count(self) -> int:
+        return self.param_count()  # DENSE: every parameter is active
+
+    def flops_per_token(self, train: bool = True) -> float:
+        """MODEL_FLOPS basis: 6·N_active (train) / 2·N_active (forward),
+        embeddings excluded."""
+        emb = self.cfg.vocab_size * self.cfg.d_model
+        if not self.cfg.tie_embeddings:
+            emb *= 2
+        n = self.active_param_count() - emb
+        return (6.0 if train else 2.0) * n
+
+    def loss(self, params, batch, runtime: Runtime = Runtime()):
+        raise NotImplementedError(
+            "the LM loss is not ported yet: ROADMAP.md queue 1, item 10 "
+            "(the pod-scale LM round) ports it"
+        )
+
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        return transformer.init_cache(self.cfg, batch_size, max_len, device=device)
+
+    def prefill(self, params, batch, cache_len: int, runtime: Runtime = Runtime()):
+        return transformer.prefill(params, self.cfg, tokens=batch["tokens"],
+                                   cache_len=cache_len, runtime=runtime)
+
+    def decode_step(self, params, cache, tokens, runtime: Runtime = Runtime()):
+        return transformer.decode_step(params, self.cfg, cache, tokens, runtime)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    transformer.check_dense(cfg)
+    return Model(cfg)

@@ -1,0 +1,27 @@
+"""Continuous-batching serving engine over the paged decode state (port
+of ``repro/serve``).
+
+    arrivals.py  — Poisson/diurnal request traces as KIND_ARRIVE events.
+    scheduler.py — host control plane: slot scheduler + page allocator.
+    paged.py     — device state and programs: paged KV pool, admission
+                   (prefill with K5 -> page scatter), the one batched
+                   decode step (dense gather or K7).
+    costs.py     — §IV.F virtual latency/energy on ``RoundCostModel``.
+    engine.py    — ``ContinuousBatchingEngine``.
+    oracle.py    — ``SequentialOracle``, the per-request reference.
+
+``sweep.py`` (arrival-rate grids) is not ported yet (ROADMAP.md queue 1,
+item 12).
+"""
+from repro_torch.serve.arrivals import RequestTrace, TraceConfig, make_trace, trace_from_arrays
+from repro_torch.serve.costs import ServeCostModel
+from repro_torch.serve.engine import ContinuousBatchingEngine, EngineConfig, ServeReport
+from repro_torch.serve.oracle import SequentialOracle
+from repro_torch.serve.paged import PagePlan
+from repro_torch.serve.scheduler import PageAllocator, SlotScheduler
+
+__all__ = [
+    "ContinuousBatchingEngine", "EngineConfig", "PageAllocator", "PagePlan",
+    "RequestTrace", "SequentialOracle", "ServeCostModel", "ServeReport",
+    "SlotScheduler", "TraceConfig", "make_trace", "trace_from_arrays",
+]

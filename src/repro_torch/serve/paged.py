@@ -1,0 +1,192 @@
+"""Device-side paged slot state and the serving programs (port of
+``repro/serve/paged.py``: ``PagePlan``, ``init_pool``, ``make_admit_fn``,
+``make_decode_fn``, ``_paged_transformer_step``).
+
+  * ``make_admit_fn``  — prefill one request (batch 1), scatter its prompt
+    KV into the physical page pool at host-chosen page ids, seed the
+    slot's next token and the request's output row;
+  * ``make_decode_fn`` — ONE batched decode step over all S slots:
+    per-slot positions and RoPE, KV writes routed through the page table
+    (inactive slots write to the trash page 0), ragged attention over the
+    pool, greedy argmax, and the token scatter into the device-resident
+    output buffer (inactive slots land in the trash row).
+
+Attention modes:
+
+  * ``dense`` — gather each slot's pages into a contiguous cache and run
+    ``models.layers.attention_decode``; the gathered width equals the
+    sequential oracle's ``cache_len``, so this path reproduces the
+    per-request decode token for token;
+  * ``paged`` — K7, the hand-written paged decode kernel (its plain
+    version on the CPU): no gathered cache is made.
+
+The pool, the next tokens and the output buffer belong to the engine that
+made them, so both programs write them IN PLACE (``index_put_``; the
+JAX package's programs donate them instead). DENSE family only for now.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.paged_attention import gather_pages, paged_attention
+from repro_torch.models import transformer as tf
+from repro_torch.models.api import Model
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import attention_decode, rms_norm
+from repro_torch.models.transformer import Runtime, static_layer_meta
+
+ATTN_MODES = ("dense", "paged")
+
+
+@dataclasses.dataclass(frozen=True)
+class PagePlan:
+    """Static paging geometry shared by engine, oracle and tests."""
+
+    page_size: int
+    prompt_len: int  # text tokens per request (static prefill shape)
+    n_patches: int  # VLM frontend embeddings prepended at prefill
+    max_gen: int  # per-request generation cap (sizes the slot span)
+
+    @property
+    def prompt_eff(self) -> int:
+        """Cached positions after prefill."""
+        return self.prompt_len + self.n_patches
+
+    @property
+    def span(self) -> int:
+        return self.prompt_eff + self.max_gen
+
+    @property
+    def pages_per_slot(self) -> int:
+        """Page-table width; also fixes the oracle's cache_len."""
+        return -(-self.span // self.page_size)
+
+    @property
+    def prompt_pages(self) -> int:
+        return -(-self.prompt_eff // self.page_size)
+
+    @property
+    def cache_len(self) -> int:
+        return self.pages_per_slot * self.page_size
+
+    def pages_for_gen(self, gen_len: int) -> int:
+        """Physical pages a request with ``gen_len`` decode tokens needs."""
+        return -(-(self.prompt_eff + int(gen_len)) // self.page_size)
+
+    @classmethod
+    def build(cls, cfg: ModelConfig, prompt_len: int, max_gen: int,
+              page_size: int = 16, n_patches: int = 8) -> "PagePlan":
+        del n_patches  # VLM frontends are not ported; no patches prepended
+        tf.check_dense(cfg)
+        return cls(page_size=page_size, prompt_len=prompt_len, n_patches=0,
+                   max_gen=max_gen)
+
+
+def init_pool(cfg: ModelConfig, plan: PagePlan, slots: int, num_pages: int,
+              dtype=None, device=None):
+    """Zeroed k/v pools (L, num_pages + 1, page, Hkv, hd) on the CUDA card
+    unless ``device`` names another: physical page 0 is the trash page."""
+    del slots  # the DENSE family keeps no per-slot state besides its pages
+    tf.check_dense(cfg)
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    device = resolve_device(device)
+    shape = (cfg.num_layers, num_pages + 1, plan.page_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
+    """Returns ``admit(params, pool, tokens, out_buf, prompt, pages, slot,
+    req) -> (pool, tokens, out_buf)``, writing its three state arguments
+    in place. ``prompt`` is (1, prompt_len) on the device, ``pages`` the
+    (prompt_pages,) physical page ids on the device, ``slot``/``req``
+    ints."""
+    cfg = model.cfg
+    tf.check_dense(cfg)
+    # Prefill fills whole pages; the padding past the prompt is zeros,
+    # overwritten once decode reaches it.
+    prefill_len = plan.prompt_pages * plan.page_size
+    shape = (cfg.num_layers, plan.prompt_pages, plan.page_size, cfg.num_kv_heads,
+             cfg.head_dim)
+
+    @torch.no_grad()
+    def admit(params, pool, tokens, out_buf, prompt, pages, slot: int, req: int):
+        logits, cache = model.prefill(params, {"tokens": prompt}, cache_len=prefill_len,
+                                      runtime=runtime)
+        first = torch.argmax(logits[0, -1], dim=-1)
+        pool["k"][:, pages] = cache["k"][:, 0].reshape(shape)
+        pool["v"][:, pages] = cache["v"][:, 0].reshape(shape)
+        tokens[slot, 0] = first
+        out_buf[req, 0] = first.to(out_buf.dtype)
+        return pool, tokens, out_buf
+
+    return admit
+
+
+@torch.no_grad()
+def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, tokens,
+                            page_table, positions, active, runtime: Runtime,
+                            attn: str):
+    """Slot-batched analogue of ``transformer.decode_step``: per-slot
+    ``positions`` (S,) and the page pool instead of a contiguous cache.
+    Writes the new KV into ``pool`` in place; returns (logits (S,1,V),
+    pool)."""
+    s = tokens.shape[0]
+    page = plan.page_size
+    x = tf.embed_inputs(params, cfg, tokens=tokens)  # (S, 1, d)
+    pos2 = positions[:, None]  # (S, 1) per-slot RoPE positions
+    rows = torch.arange(s, device=tokens.device)
+    # New-token KV target: the slot's current page, or the trash page 0.
+    tgt = torch.where(active, page_table[rows, positions // page].long(), 0)
+    off = positions % page
+    lengths = torch.where(active, positions + 1, 0).to(torch.int32)
+    k_pool, v_pool = pool["k"], pool["v"]
+    for i in range(cfg.num_layers):
+        lp = tf.layer_params(params, i)
+        w_i, th_i = static_layer_meta(cfg, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = tf.qkv(lp, cfg, h, pos2, th_i)
+        k_pool[i, tgt, off] = k[:, 0]
+        v_pool[i, tgt, off] = v[:, 0]
+        if attn == "paged":
+            out = paged_attention(q[:, 0], k_pool[i], v_pool[i], page_table, lengths,
+                                  w_i)[:, None]
+        else:
+            kg = gather_pages(k_pool[i], page_table)  # (S, cache_len, Hkv, hd)
+            vg = gather_pages(v_pool[i], page_table)
+            out = attention_decode(q, kg, vg, positions, w_i)
+        x = x + tf.attn_out(lp, out)
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + tf._ffn_block(lp, cfg, h, runtime)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return tf._head_logits(params, cfg, x), pool
+
+
+def make_decode_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime(),
+                   attn: str = "dense"):
+    """Returns ``step(params, pool, tokens, out_buf, page_table, positions,
+    active, out_req, out_idx) -> (pool, tokens, out_buf)``: the one program
+    that serves the whole trace. ``pool`` and ``out_buf`` are written in
+    place, ``tokens`` comes back new. ``out_req``/``out_idx`` route each
+    slot's token into the output buffer; the host passes the trash row for
+    inactive slots."""
+    cfg = model.cfg
+    tf.check_dense(cfg)
+    if attn not in ATTN_MODES:
+        raise ValueError(f"attn must be one of {ATTN_MODES}, got {attn!r}")
+
+    @torch.no_grad()
+    def step(params, pool, tokens, out_buf, page_table, positions, active, out_req,
+             out_idx):
+        logits, pool = _paged_transformer_step(params, cfg, plan, pool, tokens,
+                                               page_table, positions, active,
+                                               runtime, attn)
+        nxt = torch.argmax(logits[:, -1], dim=-1)  # (S,)
+        out_buf[out_req, out_idx] = nxt.to(out_buf.dtype)
+        return pool, nxt[:, None], out_buf
+
+    return step

@@ -97,6 +97,22 @@ class RoundCostModel:
         fixed = e.c_cpu * workload_flops + e.c_tx * upload_bytes  # Python floats
         return (fixed + (~warm) * e.cold_start_energy_j) * selected
 
+    # -- serving: the host-driven engine keeps its virtual clock on the
+    # host, so these return plain floats from the same §IV.F constants.
+    def invocation_delay_ms(self, warm: bool) -> float:
+        """Eq. 4 container delay for ONE serving invocation (a prefill)."""
+        cs = self.cfg.cold_start
+        return float(cs.delta_warm_ms if warm else cs.delta_cold_ms)
+
+    def token_energy_j(self, flops: float, tx_bytes: float = 0.0) -> float:
+        """§IV.F energy for ``flops`` of compute + ``tx_bytes`` streamed out."""
+        e = self.cfg.energy
+        return float(e.c_cpu * flops + e.c_tx * tx_bytes)
+
+    def cold_start_energy_j(self) -> float:
+        """e_c in §IV.F, paid by each cold serving prefill."""
+        return float(self.cfg.energy.cold_start_energy_j)
+
     def round_costs(
         self, profiles, selected: Array, warm: Array, workload_flops: float,
         upload_bytes: float, download_bytes: float, policy: str = "fedfog",

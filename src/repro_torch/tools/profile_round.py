@@ -37,7 +37,7 @@ PHASE_PREFIX = "round."
 def _wall_ms(sim, state, rounds):
     t0 = time.perf_counter()
     for r in rounds:
-        state = sim._round(sim.env, *state, r)[:3]
+        state = sim._round(sim.env, *state, r, in_place=True)[:3]
     torch.cuda.synchronize()
     return state, (time.perf_counter() - t0) / len(rounds) * 1e3
 

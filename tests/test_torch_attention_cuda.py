@@ -1,0 +1,47 @@
+"""K5 and K7, the hand-written CUDA kernels, against their plain versions
+on the card, at the cases of the CPU parity tests (numpy-seeded float32
+inputs, tolerances 1e-5 for K5 and 2e-5 for K7 as there). These need a
+CUDA card (an H100 for sm_90a) and skip without one; the file imports no
+JAX, so on the card it runs alone:
+
+    PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_attention_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+from _attention_cases import FLASH_CASES, PAGED_CASES, flash_inputs, paged_inputs
+
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K5 and K7 are CUDA kernels with no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain_version(case):
+    _card()
+    b, h, hkv, sq, sk, hd, window, bidir = case
+    q, k, v = (torch.from_numpy(x).cuda() for x in flash_inputs(b, h, hkv, sq, sk, hd))
+    # the kernel takes the model layout; the (B, H, S, hd) inputs go in as views
+    out = flash_attention_cuda(*(x.transpose(1, 2) for x in (q, k, v)), window=window,
+                               bidirectional=bidir).transpose(1, 2)
+    ref = flash_attention_ref(q, k, v, window=window, bidirectional=bidir)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES, ids=str)
+def test_paged_kernel_matches_plain_version(case):
+    _card()
+    s, hkv, g, hd, page, n, window = case
+    q, kp, vp, table, lengths = (torch.from_numpy(x).cuda()
+                                 for x in paged_inputs(s, hkv, g, hd, page, n))
+    out = paged_attention(q, kp, vp, table, lengths, window)
+    ref = paged_attention_ref(q, kp, vp, table, lengths, window)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=2e-5)
+    assert not out[s // 2].any()  # the empty slot: exact zeros

@@ -33,11 +33,16 @@ def test_import_loads_no_jax_and_keeps_torch_state():
     code = (
         "import sys, torch\n"
         "before = (torch.get_num_threads(), torch.get_default_dtype(), "
-        "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32)\n"
+        "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32, "
+        "torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())\n"
         "import repro_torch.fl.simulator, repro_torch.kernels.delta_pipeline.ops\n"
         "import repro_torch.convert, repro_torch.random\n"
+        "import repro_torch.serve.engine, repro_torch.serve.oracle, repro_torch.models.api\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
+        "import repro_torch.launch.serve, repro_torch.configs\n"
         "after = (torch.get_num_threads(), torch.get_default_dtype(), "
-        "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32)\n"
+        "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32, "
+        "torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())\n"
         "assert before == after, (before, after)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

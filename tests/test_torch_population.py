@@ -67,17 +67,25 @@ def test_gather_scatter_round_trip_is_exact():
     ids = torch.tensor([1, 7, 8, 20, 39])
     rows = tfog.gather_rows(tel, ids)
     assert torch.equal(rows.batt, before["batt"][ids])
-    # scatter back what was gathered: nothing changes
-    assert tfog.scatter_rows(tel, ids, rows) is tel
+    # scatter back what was gathered: nothing changes, in either mode
+    back = tfog.scatter_rows(tel, ids, rows)
+    assert back is not tel
+    assert tfog.scatter_rows(tel, ids, rows, in_place=True) is tel
     for k, v in before.items():
         assert torch.equal(getattr(tel, k), v)
-    # scatter new rows: exactly those rows change
+        assert torch.equal(getattr(back, k), v)
+    # scatter new rows: exactly those rows change; out of place (the
+    # default) leaves ``tel`` as it was, in place writes into it
     new = ClientTelemetry(*(torch.full((5,), float(i)) for i in range(4)))
-    tfog.scatter_rows(tel, ids, new)
     keep = torch.ones(40, dtype=torch.bool)
     keep[ids] = False
-    assert torch.equal(tel.mem[ids], torch.ones(5))
-    assert torch.equal(tel.mem[keep], before["mem"][keep])
+    out = tfog.scatter_rows(tel, ids, new)
+    for k, v in before.items():
+        assert torch.equal(getattr(tel, k), v)
+    tfog.scatter_rows(tel, ids, new, in_place=True)
+    for t in (out, tel):
+        assert torch.equal(t.mem[ids], torch.ones(5))
+        assert torch.equal(t.mem[keep], before["mem"][keep])
 
 
 def test_cohort_sched_gather_and_scatter_match_jax():
