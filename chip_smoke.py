@@ -7,9 +7,14 @@ Phases, one line of output each (any failure raises and exits non-zero):
 
   1. device   — the card's name, device count, nvidia-smi name and power limit;
   2. build    — one nvcc per kernel source, all started together: the
-                delta-pipeline kernels (K2, K3, K4), K5 and K7 (seconds, and
-                the -Xptxas -v register / shared-memory report);
-  3. kernels  — K2 (delta_sq_norms) and K3 (delta_pipeline_apply) held
+                delta-pipeline kernels (K1, K2, K3, K4), K5, K6 and K7
+                (seconds, and the -Xptxas -v register / shared-memory
+                report);
+  3. kernels  — K1 (fedavg_apply) held against its plain version at the
+                JAX package's FEDAVG_CASES shapes, the simulator's cohort
+                (64, 112,766) in float32 and bf16 and kernels_bench's
+                (32, 65,536), to the JAX tests' tolerances, and with no
+                client selected; K2 (delta_sq_norms) and K3 (delta_pipeline_apply) held
                 against their plain PyTorch versions on the card, at the
                 slice's shape (C=64, P=112,766 in the MLP's six leaves) and a
                 small ragged shape, over six gate sets; K4
@@ -17,7 +22,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 112,766), (64, 112,766) and a ragged (16, 1,000), gates none /
                 clip (with K2) / int8 / top-k; then K2, K3 and K4 timed at the
                 main path's shapes beside the plain version, the byte bound
-                and one PyTorch library call; K5 (flash_attention_fwd) held
+                and one PyTorch library call, and K1 likewise at (64,
+                112,766) and (32, 65,536) float32; K5 (flash_attention_fwd) held
                 against its plain version at the serving prefill's shape
                 (B=1, H=32, Hkv=8, S=128, hd=64, bf16) and at edge shapes
                 (window, bidirectional, GQA 4 and 1, Sq < Sk, ragged tiles,
@@ -25,7 +31,14 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 decode step's shape (8 slots of 129..160 tokens, page 16) and
                 at edge shapes (ragged and empty slots, windows, trash-page
                 table entries, g 1 and 2); then both timed at the slice's
-                shapes beside the plain version, the bound and SDPA;
+                shapes beside the plain version, the bound and SDPA; K6
+                (wkv6_fwd) held against its plain version at the rwkv6
+                prefill's shape (B=1, T=128, H=32, K=V=64, bf16), at B=2
+                with a ragged T=100, at T < 32, in float32, on strided views
+                and with strong decay (ww in [-4, 3], float32 and bf16):
+                y to one bf16 rounding (float32: 1e-5) and the float32 state
+                to 1e-5 of its max, every value finite; then timed at the
+                prefill's shape beside the plain version and the bound;
   4. slices   — the port's main paths through FedFogSimulator(...,
                 device="cuda").run_scanned(), launch counts set to 0 just
                 before each run and read just after:
@@ -53,6 +66,21 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 share of requests with the dense engine's tokens, wall ms
                 per admission and per decode step, init s and peak bytes
                 printed;
+                rwkv6 serving: ContinuousBatchingEngine for full-width
+                rwkv6-1.6b in bf16 (24 layers, d 2048, random weights from
+                a seed) on the same kind of trace: every request completed,
+                slot conservation, tokens in [0, vocab), K6 24 launches per
+                admission, K1-K5 and K7 none; the prefill logits of the
+                16 prompts through K6 against the same prefill on K6's
+                plain version: in a float32 copy of the model within
+                RWKV_F32_RTOL of max |logit|, and in bf16 no further from
+                the float32 logits than RWKV_BF16_FACTOR times the plain
+                bf16 prefill is (their share of max |logit| printed);
+                every slot state finite after
+                8 admissions and 20 decode steps; wall ms per admission and
+                per decode step, tokens per wall second, init s, peak bytes
+                and the share of first tokens equal to the plain prefill's
+                printed;
   5. result   — the kernels' JSON line, nvidia-smi's line and, last,
                 {"ok": true, "device": {...}}.
 
@@ -62,6 +90,8 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -84,6 +114,31 @@ K4_RAGGED_SEGS = (300, 37, 600, 63)  # P = 1,000
 # run (a million-client registry on a CPU) has been made; until then 0.80.
 POP_FOG_MIN_ACCURACY = 0.80
 POP_FOG = dict(population=1_000_000, num_clients=64, fog_nodes=4)
+
+
+def kernel_counters():
+    """{kernel: the wrapper whose ``launches`` attribute counts its
+    launches}, K1 to K7."""
+    from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+    from repro_torch.kernels.fedavg.fedavg import launch_fedavg
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
+
+    return {"fedavg_apply": launch_fedavg, "delta_sq_norms": cu.delta_sq_norms_cuda,
+            "delta_pipeline_apply": cu.launch_pipeline,
+            "delta_pipeline_partial": cu.launch_partial,
+            "flash_attention_fwd": flash_attention_cuda, "wkv6_fwd": wkv6_cuda,
+            "paged_attention_fwd": paged_attention_cuda}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -197,11 +252,57 @@ def check_partial(torch, dp, dev):
     return worst
 
 
+# K1 cases (N, D, dtype): the JAX package's FEDAVG_CASES shapes
+# (tests/test_kernels.py), the simulator's cohort and kernels_bench's.
+K1_CASES = [(8, 1000, "float32"), (16, 4096, "float32"), (32, 5000, "bfloat16"),
+            (64, 333, "float32"), (4, 2048, "float32"), (64, 112_766, "float32"),
+            (64, 112_766, "bfloat16"), (32, 65_536, "float32")]
+# The JAX tests' absolute tolerances (tests/test_kernels.py:137): float32
+# 2e-6 (summation order around |base| ~ 1); bf16 5e-2 (one rounding of
+# the output at |x| < 8 is at most 2^-5).
+K1_ATOL = {"float32": 2e-6, "bfloat16": 5e-2}
+
+
+def check_fedavg(torch, fa, dev):
+    """K1 against its plain version on the JAX tests' kind of inputs
+    (N(0, 1) updates and base, 70 % of clients selected, weights
+    |N(0, 1)|·100, lr 0.9); then with no client selected, where the base
+    must come back. Returns the max abs error."""
+    worst = 0.0
+    for i, (n, d, dtype) in enumerate(K1_CASES):
+        g = torch.Generator(device=dev)
+        g.manual_seed(500 + i)
+        dt = getattr(torch, dtype)
+        upd = torch.randn((n, d), generator=g, device=dev).to(dt)
+        base = torch.randn((d,), generator=g, device=dev).to(dt)
+        mask = torch.rand((n,), generator=g, device=dev) < 0.7
+        w = torch.randn((n,), generator=g, device=dev).abs() * 100
+        out = fa.fedavg_apply(upd, base, mask, w, lr=0.9)
+        ref = fa.fedavg_apply_ref(upd, base, mask, w, lr=0.9)
+        torch.cuda.synchronize()
+        check(out.dtype == base.dtype and out.shape == base.shape, f"fedavg {n}x{d}: {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"fedavg {n}x{d} {dtype}: non-finite output")
+        err = float((out.float() - ref.float()).abs().max())
+        say("kernels", kernel="fedavg_apply", N=n, D=d, dtype=dtype, max_abs_err=err,
+            atol=K1_ATOL[dtype])
+        check(err <= K1_ATOL[dtype], f"fedavg_apply {n}x{d} {dtype}: max_abs_err {err}")
+        worst = max(worst, err)
+        if i == 0:
+            none = fa.fedavg_apply(upd, base, torch.zeros_like(mask), w)
+            check(torch.equal(none, base), "fedavg_apply with no client selected")
+            say("kernels", kernel="fedavg_apply", N=n, D=d, case="no client selected",
+                equal_to_base=True)
+    return worst
+
+
 def phase_kernels(torch, dp):
     """Phase 3: kernel vs plain version, then timing. Returns per-kernel
     dicts for the JSON line (launches filled in by the slice phase)."""
+    from repro_torch.kernels import fedavg as fa
+
     dev = torch.device("cuda")
-    errs = {"delta_sq_norms": 0.0, "delta_pipeline_apply": 0.0}
+    errs = {"delta_sq_norms": 0.0, "delta_pipeline_apply": 0.0,
+            "fedavg_apply": check_fedavg(torch, fa, dev)}
     for shape_name, c, segs in (("slice", 64, SLICE_SEGS), ("ragged", 6, RAGGED_SEGS)):
         fx = make_inputs(torch, c, segs, 1234, dev)
         k2 = dp.delta_sq_norms(fx["upd"])
@@ -317,7 +418,45 @@ def phase_kernels(torch, dp):
         x, dm = blocks[i % 16]
         torch.mv(x.t(), dm, out=out4)
 
+    # K1 at the simulator's cohort on the same four buffers, its weight row
+    # prepared as the wrapper makes it; and at kernels_bench's (32, 65,536)
+    # with every client selected at weight 1, eight 8 MB buffers (> L2).
+    from repro_torch.kernels.fedavg import fedavg as fa_cuda
+
+    k1_rows = [fa_cuda.weight_row(b["mask"], b["weights"], lr) for b in bufs]
+    out1 = torch.empty((p,), device=dev)
+
+    def k1(i):
+        b = bufs[i % 4]
+        fa_cuda.launch_fedavg(b["upd"], b["base"], k1_rows[i % 4], out1)
+
+    def k1_plain(i):
+        b = bufs[i % 4]
+        fa.fedavg_apply_ref(b["upd"], b["base"], b["mask"], b["weights"], lr=lr)
+
+    def k1_lib(i):
+        b = bufs[i % 4]
+        torch.addmv(b["base"], b["upd"].t(), k1_rows[i % 4], out=out1)
+
+    nb, db = 32, 1 << 16
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(11)
+    bench = [(torch.randn((nb, db), generator=gb, device=dev),
+              torch.randn((db,), generator=gb, device=dev)) for _ in range(8)]
+    ones_mask = torch.ones((nb,), dtype=torch.bool, device=dev)
+    ones_w = torch.ones((nb,), device=dev)
+    bench_row = fa_cuda.weight_row(ones_mask, ones_w, 1.0)
+    outb = torch.empty((db,), device=dev)
+    t_bench = {
+        "k1": cuda_ms(lambda i: fa_cuda.launch_fedavg(*bench[i % 8], bench_row, outb), 400),
+        "k1_plain": cuda_ms(lambda i: fa.fedavg_apply_ref(*bench[i % 8], ones_mask, ones_w), 100),
+        "k1_lib": cuda_ms(lambda i: torch.addmv(bench[i % 8][1], bench[i % 8][0].t(),
+                                                bench_row, out=outb), 400),
+    }
+
     t = {
+        "k1": cuda_ms(k1, 200), "k1_plain": cuda_ms(k1_plain, 100),
+        "k1_lib": cuda_ms(k1_lib, 200),
         "k4": cuda_ms(k4, 400), "k4_plain": cuda_ms(k4_plain, 20),
         "k4_lib": cuda_ms(k4_lib, 400),
         "k3": cuda_ms(k3, 200), "k3_wrapper": cuda_ms(k3_wrapper, 200),
@@ -332,6 +471,11 @@ def phase_kernels(torch, dp):
     by2 = (k2_bytes / HBM_BYTES_PER_S, 2 * c * p / FP32_FLOP_PER_S)
     k4_bytes = 4 * (cl * p + cl + p)  # one fog's deltas, its weights, out
     by4 = (k4_bytes / HBM_BYTES_PER_S, 2 * cl * p / FP32_FLOP_PER_S)
+    # K1 moves K3's ungated bytes and does its FMAs.
+    by1 = by3
+    k1b_bytes = 4 * (nb * db + db + db + nb)
+    by1b = (k1b_bytes / HBM_BYTES_PER_S, 2 * (nb * db + db) / FP32_FLOP_PER_S)
+    bound1, bound1b = max(by1) * 1e3, max(by1b) * 1e3
     bound3, bound2, bound4 = max(by3) * 1e3, max(by2) * 1e3, max(by4) * 1e3
     bound_by3 = "bytes" if by3[0] >= by3[1] else "operations"
     bound_by2 = "bytes" if by2[0] >= by2[1] else "operations"
@@ -340,6 +484,13 @@ def phase_kernels(torch, dp):
         wrapper_ms=t["k3_wrapper"], plain_ms=t["k3_plain"], library_ms=t["k3_lib"],
         library="torch.addmv", bound_ms=bound3, bytes=k3_bytes,
         share_of_bound=bound3 / t["k3"])
+    say("timing", kernel="fedavg_apply", N=c, D=p, dtype="float32", ms=t["k1"],
+        plain_ms=t["k1_plain"], library_ms=t["k1_lib"], library="torch.addmv",
+        bound_ms=bound1, bytes=k3_bytes, share_of_bound=bound1 / t["k1"])
+    say("timing", kernel="fedavg_apply", shape="kernels_bench", N=nb, D=db,
+        dtype="float32", ms=t_bench["k1"], plain_ms=t_bench["k1_plain"],
+        library_ms=t_bench["k1_lib"], library="torch.addmv", bound_ms=bound1b,
+        bytes=k1b_bytes, share_of_bound=bound1b / t_bench["k1"])
     say("timing", kernel="delta_sq_norms", C=c, P=p, ms=t["k2"],
         plain_ms=t["k2_plain"], library_ms=t["k2_lib"],
         library="torch.linalg.vecdot", bound_ms=bound2, bytes=k2_bytes,
@@ -350,6 +501,12 @@ def phase_kernels(torch, dp):
     src = "src/repro_torch/kernels/delta_pipeline/csrc/delta_pipeline.cu"
     pallas = "src/repro/kernels/delta_pipeline/delta_pipeline.py"
     return [
+        {"name": "fedavg_apply", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/fedavg/fedavg.py:68", "launches": None,
+         "on_main_path": False, "max_abs_err": errs["fedavg_apply"], "ms": t["k1"],
+         "plain_ms": t["k1_plain"], "bound_ms": bound1,
+         "bound_by": "bytes" if by1[0] >= by1[1] else "operations",
+         "library_ms": t["k1_lib"]},
         {"name": "delta_sq_norms", "route": "cuda", "source": src,
          "replaces": f"{pallas}:80", "launches": None, "on_main_path": False,
          "max_abs_err": errs["delta_sq_norms"], "ms": t["k2"],
@@ -555,6 +712,138 @@ def phase_attention_kernels(torch):
     ]
 
 
+# ---- K6 (the RWKV6 recurrence) ---------------------------------------- #
+# rwkv6-1.6b's prefill: 32 wkv heads of 64, one 128-token prompt (B = 1).
+RWKV_HEADS = 32
+# (name, B, T, H, dtype, range of ww in w = exp(-exp(ww)), strided views)
+K6_CASES = [
+    ("slice", 1, PROMPT, RWKV_HEADS, "bfloat16", (-4.0, 0.5), False),
+    ("ragged T, B 2", 2, 100, RWKV_HEADS, "bfloat16", (-4.0, 0.5), False),
+    ("T < 32", 1, 20, 4, "bfloat16", (-4.0, 0.5), False),
+    ("float32", 2, 64, 4, "float32", (-4.0, 0.5), False),
+    ("strided views, ragged", 2, 77, 4, "float32", (-4.0, 0.5), True),
+    ("strong decay, float32", 1, PROMPT, 8, "float32", (-4.0, 3.0), False),
+    ("strong decay", 1, PROMPT, RWKV_HEADS, "bfloat16", (-4.0, 3.0), False),
+]
+# y: the kernel and the plain version compute in float32 (the same
+# element updates, the sum over K in another order) and round once to
+# the input dtype, so bf16 outputs may land one bf16 step (2^-7 relative)
+# apart; float32 differ by the sum's order (1e-5). Both plus 1e-5 of
+# max |y| for the sums' cancellations. State: float32, the plain
+# version's element arithmetic, so 1e-5 of its max |S| is generous.
+K6_Y_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+K6_ATOL_OF_MAX = 1e-5
+WKV_CHUNK = 32  # the TPU kernel's chunk
+
+
+def k6_ops(b, t, h, dk=64, dv=64):
+    """Floating-point operations of the RWKV6 recurrence over (B, T, H): the
+    smaller of the stepwise form's and the TPU kernel's chunked form's.
+    Stepwise, per step and head: r·S (2·K·V), the bonus (r·(u⊙k))·v
+    (3·K + 2·V) and S = fma(w, S, k·v) (3·K·V). Chunked, per chunk and
+    head: inter r̃·S and the carry k̃ᵀ·v (2·C·K·V each), scores r̃·k̃ᵀ
+    (2·C²·K) and scores·v (2·C²·V)."""
+    step = b * h * t * (5 * dk * dv + 3 * dk + 2 * dv)
+    nc = -(-t // WKV_CHUNK)
+    chunked = b * h * nc * (4 * WKV_CHUNK * dk * dv + 2 * WKV_CHUNK ** 2 * (dk + dv))
+    return min(step, chunked)
+
+
+def k6_compare(torch, y, s, yp, sp):
+    """K6's (y, state) against its plain version's on the same inputs: y to
+    K6_Y_RTOL of its dtype plus K6_ATOL_OF_MAX of max |y|, the state to
+    K6_ATOL_OF_MAX of max |S|. Returns (ok, y err, max |y|, state err,
+    max |S|)."""
+    yo, yr = y.float(), yp.float()
+    y_err = float((yo - yr).abs().max())
+    y_max = float(yr.abs().max())
+    bad = (yo - yr).abs() > K6_Y_RTOL[str(y.dtype)[6:]] * yr.abs() + K6_ATOL_OF_MAX * y_max
+    s_err = float((s - sp).abs().max())
+    s_max = float(sp.abs().max())
+    return not bool(bad.any()) and s_err <= K6_ATOL_OF_MAX * s_max, y_err, y_max, s_err, s_max
+
+
+def wkv6_inputs(torch, b, t, h, dtype, ww_range, strided, seed, dev):
+    """The JAX test's kind of inputs (r, v ~ N(0, 1), k ~ N(0, 1)/2,
+    u ~ 0.3·N(0, 1) float32, w = exp(-exp(U(ww_range)))), in ``dtype``;
+    ``strided``: views of wider buffers (the head dim contiguous)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    width = 2 * 64 if strided else 64
+
+    def make(x):
+        x = x.to(dt)
+        if not strided:
+            return x
+        buf = torch.zeros((b, t, h, width), dtype=dt, device=dev)
+        buf[..., 3:67] = x
+        return buf[..., 3:67]
+
+    shape = (b, t, h, 64)
+    r = make(torch.randn(shape, generator=g, device=dev))
+    k = make(torch.randn(shape, generator=g, device=dev) * 0.5)
+    v = make(torch.randn(shape, generator=g, device=dev))
+    lo, hi = ww_range
+    ww = torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+    w = make(torch.exp(-torch.exp(ww)))
+    u = torch.randn((h, 64), generator=g, device=dev) * 0.3
+    return r, k, v, w, u
+
+
+def phase_wkv6_kernel(torch):
+    """K6 against its plain version at every case, then timed at the
+    prefill's shape. Returns its dict for the JSON line."""
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.wkv6 import wkv6_cuda
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for i, (name, b, t, h, dtype, ww_range, strided) in enumerate(K6_CASES):
+        r, k, v, w, u = wkv6_inputs(torch, b, t, h, dtype, ww_range, strided, 300 + i, dev)
+        y, s = ops.wkv6(r, k, v, w, u)
+        yp, sp = ops.wkv6_plain(r, k, v, w, u)
+        torch.cuda.synchronize()
+        check(y.dtype == r.dtype and tuple(y.shape) == (b, t, h, 64), f"wkv6 {name}: y")
+        check(s.dtype == torch.float32 and tuple(s.shape) == (b, h, 64, 64), f"wkv6 {name}: state")
+        for what, x in (("y", y), ("state", s), ("plain y", yp), ("plain state", sp)):
+            check(bool(torch.isfinite(x).all()), f"wkv6 {name}: non-finite {what}")
+        ok, y_err, y_max, s_err, s_max = k6_compare(torch, y, s, yp, sp)
+        check(ok, f"wkv6 {name}: y max_abs_err {y_err} of {y_max}, "
+                  f"state max_abs_err {s_err} of {s_max}")
+        say("kernels", kernel="wkv6_fwd", case=repr(name), B=b, T=t, H=h, dtype=dtype,
+            ww_range=list(ww_range), strided=strided, y_max_abs_err=y_err,
+            y_max_abs=y_max, y_rtol=K6_Y_RTOL[dtype], atol=f"{K6_ATOL_OF_MAX} of max|y|",
+            state_max_abs_err=s_err, state_max_abs=s_max,
+            state_bitwise_equal=bool(torch.equal(s, sp)))
+        worst = max(worst, y_err)
+
+    # ---- timing at the prefill's shape (inputs as the layer leaves them)
+    b, t, h = 1, PROMPT, RWKV_HEADS
+    r, k, v, w, u = wkv6_inputs(torch, b, t, h, "bfloat16", (-4.0, 0.5), False, 9, dev)
+    w_min = ops.w_floor(w.dtype)
+    tm = {
+        "k6": cuda_ms(lambda i: wkv6_cuda(r, k, v, w, u, w_min=w_min), 400),
+        "k6_plain": cuda_ms(lambda i: ops.wkv6_plain(r, k, v, w, u), 5, n_warm=2),
+    }
+    el = 2  # bytes per bf16 element
+    k6_bytes = el * 4 * b * t * h * 64 + 4 * h * 64 + el * b * t * h * 64 + 4 * b * h * 64 * 64
+    n_ops = k6_ops(b, t, h)
+    by6 = (k6_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S)
+    b6 = max(by6) * 1e3
+    say("timing", kernel="wkv6_fwd", B=b, T=t, H=h, K=64, V=64, dtype="bfloat16",
+        ms=tm["k6"], plain_ms=tm["k6_plain"], library_ms=None,
+        library="none: no single PyTorch call computes WKV6", bound_ms=b6,
+        bytes=k6_bytes, operations=n_ops, share_of_bound=b6 / tm["k6"])
+    return {"name": "wkv6_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/wkv6.py:111", "launches": None,
+            "on_main_path": True, "max_abs_err": worst, "ms": tm["k6"],
+            "plain_ms": tm["k6_plain"], "bound_ms": b6,
+            "bound_by": "bytes" if by6[0] >= by6[1] else "operations",
+            "library_ms": None}
+
+
 # ---- the serving slice: continuous batching of llama3.2-1b ------------ #
 SERVE_REQUESTS, SERVE_RATE = 16, 20.0  # the launcher's default rate
 # Paged vs dense first-decode-step logits: both run the same bf16 model
@@ -564,31 +853,12 @@ SERVE_REQUESTS, SERVE_RATE = 16, 20.0  # the launcher's default rate
 LOGITS_RTOL = 0.05  # of the dense logits' max |value|
 
 
-def attention_counts(k5, k7, cu):
-    return {"flash_attention_fwd": k5.launches, "paged_attention_fwd": k7.launches,
-            "delta_sq_norms": cu.delta_sq_norms_cuda.launches,
-            "delta_pipeline_apply": cu.launch_pipeline.launches,
-            "delta_pipeline_partial": cu.launch_partial.launches}
-
-
-def zero_counts(k5, k7, cu):
-    k5.launches = 0
-    k7.launches = 0
-    cu.delta_sq_norms_cuda.launches = 0
-    cu.launch_pipeline.launches = 0
-    cu.launch_partial.launches = 0
-
-
-def phase_serving(torch, cu):
+def phase_serving(torch):
     """The port's serving path: ContinuousBatchingEngine for full-width
     llama3.2-1b in bf16 on the card, prefill through K5 (attn_impl
     "flash") and decode through K7 (attn "paged"), after the dense-mode
     engine on the same trace. Returns the paged run's launch counts."""
-    import dataclasses
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda as k5
-    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda as k7
     from repro_torch.models import Runtime, build_model
     from repro_torch.random import TorchDraws
     from repro_torch.serve import (ContinuousBatchingEngine, EngineConfig, TraceConfig,
@@ -621,10 +891,10 @@ def phase_serving(torch, cu):
     engine = ContinuousBatchingEngine(model, params, dataclasses.replace(ecfg, attn="paged"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(k5, k7, cu)
+    zero_counts()
     rep = engine.serve(trace)
     torch.cuda.synchronize()
-    launches = attention_counts(k5, k7, cu)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check(rep.completed == SERVE_REQUESTS and rep.rejected == 0,
           f"{rep.completed} of {SERVE_REQUESTS} requests completed")
@@ -639,7 +909,8 @@ def phase_serving(torch, cu):
             check(all(0 <= x < cfg.vocab_size for x in toks), f"request {req}: token out of range")
     expect_launches(launches, flash_attention_fwd=cfg.num_layers * rep.prefills,
                     paged_attention_fwd=cfg.num_layers * rep.decode_steps,
-                    delta_sq_norms=0, delta_pipeline_apply=0, delta_pipeline_partial=0)
+                    fedavg_apply=0, delta_sq_norms=0, delta_pipeline_apply=0,
+                    delta_pipeline_partial=0, wkv6_fwd=0)
     same = sum(rep.tokens_for(i) == dense.tokens_for(i) for i in range(SERVE_REQUESTS))
     # Both engines prefill through the same K5 path: their first tokens agree.
     check(all(rep.tokens_for(i)[0] == dense.tokens_for(i)[0] for i in range(SERVE_REQUESTS)),
@@ -699,7 +970,215 @@ def phase_serving(torch, cu):
     return launches
 
 
-def run_slice(torch, cu, sim_mod, rounds, **overrides):
+# ---- the rwkv6 serving slice: continuous batching, prefill through K6 -- #
+# K6 vs its plain version in the full prefill of the 16 prompts, against
+# the float32 prefill of the same (bf16-valued) weights on the plain version:
+#   * float32 model: K6 and the plain version differ only in the order of
+#     y's sum over K (~1e-6 relative), carried through 24 layers; held to
+#     RWKV_F32_RTOL of the float32 logits' max |value|;
+#   * bf16 model (the served one): the two round y once each to bf16 and
+#     may land a bf16 step apart, a difference the 24 layers' residual
+#     stream and bf16 GEMMs amplify (9.4 % of max |logit| between them in
+#     the first full run), so the logits cannot hold a wrong kernel to
+#     account. Each layer's K6 call in the bf16 prefill is held instead
+#     against the plain version on that layer's own inputs, as phase 3
+#     holds K6 (``k6_compare``). The bf16 logits are also held to no more
+#     than RWKV_BF16_FACTOR times the plain bf16 prefill's own distance from
+#     the float32 logits, a loose check that rounding alone passes; the
+#     share of max |logit| between the two is printed.
+RWKV_F32_RTOL = 1e-3
+RWKV_BF16_FACTOR = 2.0
+
+
+@contextlib.contextmanager
+def plain_wkv6():
+    """Run the model's prefill on K6's plain version: the reference the
+    kernel's prefill is held against (launches K6 never)."""
+    from repro_torch.kernels.wkv6 import ops
+
+    kernel = ops.wkv6
+    ops.wkv6 = ops.wkv6_plain
+    try:
+        yield
+    finally:
+        ops.wkv6 = kernel
+
+
+@contextlib.contextmanager
+def wkv6_held_against_plain(torch, records):
+    """Run every K6 call of the model against the plain version on the same
+    inputs, appending ``k6_compare``'s result to ``records``."""
+    from repro_torch.kernels.wkv6 import ops
+
+    kernel = ops.wkv6
+
+    def held(r, k, v, w, u):
+        y, s = kernel(r, k, v, w, u)
+        yp, sp = ops.wkv6_plain(r, k, v, w, u)
+        records.append(k6_compare(torch, y, s, yp, sp))
+        return y, s
+
+    ops.wkv6 = held
+    try:
+        yield
+    finally:
+        ops.wkv6 = kernel
+
+
+def phase_serving_rwkv6(torch):
+    """The port's rwkv6 serving path: ContinuousBatchingEngine for
+    full-width rwkv6-1.6b in bf16 on the card, prefill through K6, decode
+    through the plain one-token recurrence. Returns the counted run's
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.random import TorchDraws
+    from repro_torch.serve import (ContinuousBatchingEngine, EngineConfig, TraceConfig,
+                                   make_trace, paged)
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trace = make_trace(
+        TorchDraws(1, "cpu"),
+        TraceConfig(n_requests=SERVE_REQUESTS, rate_per_s=SERVE_RATE, prompt_len=PROMPT,
+                    min_gen=4, max_gen=MAX_GEN),
+        cfg)
+    ecfg = EngineConfig(slots=SLOTS, page_size=PAGE, prompt_len=PROMPT, max_gen=MAX_GEN,
+                        max_requests=SERVE_REQUESTS)
+    say("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        wkv_heads=cfg.d_model // 64, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        params=model.param_count(), dtype=cfg.param_dtype, init_s=init_s,
+        requests=SERVE_REQUESTS, rate_per_s=SERVE_RATE, slots=SLOTS, prompt=PROMPT,
+        gen_len=trace.gen_len.tolist())
+
+    engine = ContinuousBatchingEngine(model, params, ecfg)
+    warm = engine.serve(trace)  # warm-up: cuBLAS handles, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    rep = engine.serve(trace)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(rep.completed == SERVE_REQUESTS and rep.rejected == 0,
+          f"{rep.completed} of {SERVE_REQUESTS} requests completed")
+    c = rep.counters
+    check(c["arrived"] == c["completed"] + c["rejected"] + c["in_flight"] + c["waiting"],
+          f"slot conservation: {c}")
+    for req in range(SERVE_REQUESTS):
+        toks = rep.tokens_for(req)
+        check(len(toks) == int(trace.gen_len[req]), f"request {req}: {len(toks)} tokens")
+        check(all(0 <= x < cfg.vocab_size for x in toks), f"request {req}: token out of range")
+    check(rep.prefills == SERVE_REQUESTS, f"{rep.prefills} admissions")
+    expect_launches(launches, wkv6_fwd=cfg.num_layers * rep.prefills, fedavg_apply=0,
+                    delta_sq_norms=0, delta_pipeline_apply=0, delta_pipeline_partial=0,
+                    flash_attention_fwd=0, paged_attention_fwd=0)
+    repeat = sum(rep.tokens_for(i) == warm.tokens_for(i) for i in range(SERVE_REQUESTS))
+
+    # The 16 prompts' prefill in one batch through K6 and through its plain
+    # version, in bf16 and in float32 (launches outside the counted run).
+    prompts = torch.from_numpy(trace.prompts).to(dev)
+    layers = []
+    with wkv6_held_against_plain(torch, layers):
+        logits_k6, cache_k6 = model.prefill(params, {"tokens": prompts}, cache_len=0)
+    with plain_wkv6():
+        logits_plain, cache_plain = model.prefill(params, {"tokens": prompts}, cache_len=0)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params32 = {k: ({n: x.float() for n, x in v.items()} if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    model32 = build_model(cfg32)
+    logits32_k6, _ = model32.prefill(params32, {"tokens": prompts}, cache_len=0)
+    with plain_wkv6():
+        logits32, _ = model32.prefill(params32, {"tokens": prompts}, cache_len=0)
+    del params32
+    torch.cuda.synchronize()
+    check(len(layers) == cfg.num_layers, f"{len(layers)} K6 calls in the bf16 prefill")
+    for i, (ok, y_err, y_max, s_err, s_max) in enumerate(layers):
+        check(ok, f"K6 in layer {i} of the bf16 prefill: y max_abs_err {y_err} of {y_max}, "
+                  f"state max_abs_err {s_err} of {s_max}")
+    for name, x in (("bf16", logits_k6), ("float32", logits32_k6)):
+        check(bool(torch.isfinite(x).all()), f"K6 {name} prefill: non-finite logits")
+    scale32 = float(logits32.abs().max())
+    diff32 = float((logits32_k6 - logits32).abs().max())
+    check(diff32 <= RWKV_F32_RTOL * scale32,
+          f"float32 K6 vs plain prefill logits: {diff32} > {RWKV_F32_RTOL} x {scale32}")
+    err_k6 = float((logits_k6 - logits32).abs().max())
+    err_plain = float((logits_plain - logits32).abs().max())
+    check(err_k6 <= RWKV_BF16_FACTOR * err_plain,
+          f"bf16 K6 prefill {err_k6} from float32, plain {err_plain}")
+    diff = float((logits_k6 - logits_plain).abs().max())
+    scale = float(logits_plain.abs().max())
+    diff0 = float((logits_k6[0] - logits_plain[0]).abs().max())
+    scale0 = float(logits_plain[0].abs().max())
+    state_diff = float((cache_k6["wkv"] - cache_plain["wkv"]).abs().max())
+    state_max = float(cache_plain["wkv"].abs().max())
+    first_k6 = torch.argmax(logits_k6[:, -1], dim=-1).tolist()
+    first_plain = torch.argmax(logits_plain[:, -1], dim=-1).tolist()
+    same_first = sum(a == b for a, b in zip(first_k6, first_plain))
+    engine_first = sum(rep.tokens_for(i)[0] == first_plain[i] for i in range(SERVE_REQUESTS))
+
+    # Wall time per admission (8 slots) and per decode step (20 steps over
+    # the full slot batch); then every slot's state must be finite.
+    plan = engine.plan
+    pool = paged.init_pool(cfg, plan, SLOTS, engine.num_pages, device=dev)
+    tokens = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
+    out_buf = torch.zeros((SERVE_REQUESTS + 1, MAX_GEN), dtype=torch.int32, device=dev)
+    admit = paged.make_admit_fn(model, plan)
+    no_pages = torch.zeros((plan.prompt_pages,), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for slot in range(SLOTS):
+        admit(params, pool, tokens, out_buf, prompts[slot:slot + 1], no_pages, slot, slot)
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) / SLOTS * 1e3
+    step = paged.make_decode_fn(model, plan)
+    table = torch.zeros((SLOTS, plan.pages_per_slot), dtype=torch.int32, device=dev)
+    positions = torch.full((SLOTS,), plan.prompt_eff, dtype=torch.int64, device=dev)
+    active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
+    out_req = torch.full((SLOTS,), SERVE_REQUESTS, dtype=torch.int64, device=dev)
+    out_idx = torch.zeros((SLOTS,), dtype=torch.int64, device=dev)
+    n_steps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        pool, tokens, out_buf = step(params, pool, tokens, out_buf, table, positions + i,
+                                     active, out_req, out_idx)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    for key, x in pool.items():
+        check(bool(torch.isfinite(x).all()), f"slot state {key} not finite")
+    say("serve", arch=cfg.name, engine="continuous", completed=rep.completed,
+        rejected=rep.rejected, prefills=rep.prefills, decode_steps=rep.decode_steps,
+        tokens=rep.tokens_generated, counters=c, launches=launches, wall_s=rep.wall_s,
+        tokens_per_wall_s=rep.tokens_per_wall_s, virtual_ms=rep.virtual_ms,
+        p50_ms=rep.percentiles["p50"], peak_bytes=peak,
+        requests_with_the_warm_up_run_tokens=repeat)
+    say("serve", arch=cfg.name, float32_prefill_logits_max_abs_diff_k6_vs_plain=diff32,
+        float32_logits_max_abs=scale32, float32_tol=f"{RWKV_F32_RTOL} x max|float32|",
+        bf16_k6_max_abs_err_vs_float32=err_k6, bf16_plain_max_abs_err_vs_float32=err_plain,
+        bf16_tol=f"{RWKV_BF16_FACTOR} x the plain version's",
+        bf16_layers_held=len(layers),
+        bf16_layers_worst_y_max_abs_err=max(x[1] for x in layers),
+        bf16_layers_worst_state_share=max(x[3] / x[4] for x in layers),
+        bf16_prefill_logits_max_abs_diff_k6_vs_plain=diff, bf16_plain_logits_max_abs=scale,
+        share=diff / scale, first_prompt_share=diff0 / scale0,
+        prefill_state_max_abs_diff=state_diff, prefill_state_max_abs=state_max,
+        share_of_first_tokens_equal_k6_vs_plain_batched=same_first / SERVE_REQUESTS,
+        share_of_engine_first_tokens_equal_to_plain=engine_first / SERVE_REQUESTS,
+        wall_ms_per_admission=admit_ms, wall_ms_per_decode_step=decode_ms,
+        slot_states_finite=True, first_request_tokens=rep.tokens_for(0))
+    return launches
+
+
+def run_slice(torch, sim_mod, rounds, **overrides):
     """Drive a main path of the port: build the simulator, set the launch
     counts to 0, run ``run_scanned()``, read the counts. Returns (history,
     {kernel: launches}, init seconds, run seconds, peak bytes)."""
@@ -710,16 +1189,14 @@ def run_slice(torch, cu, sim_mod, rounds, **overrides):
     sim = sim_mod.FedFogSimulator(cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    cu.delta_sq_norms_cuda.launches = 0
-    cu.launch_pipeline.launches = 0
-    cu.launch_partial.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     hist = sim.run_scanned()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"delta_sq_norms": cu.delta_sq_norms_cuda.launches,
-                "delta_pipeline_apply": cu.launch_pipeline.launches,
-                "delta_pipeline_partial": cu.launch_partial.launches}
+    launches = read_counts()
+    expect_launches(launches, fedavg_apply=0, flash_attention_fwd=0, wkv6_fwd=0,
+                    paged_attention_fwd=0)
     for k, v in hist.items():
         vals = v if isinstance(v, list) else [v]
         check(all(math.isfinite(x) for x in vals), f"metric {k} not finite")
@@ -761,18 +1238,23 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_pipeline as dp
     from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+    from repro_torch.kernels.fedavg.fedavg import library as fedavg_library
     from repro_torch.kernels.flash_attention.flash_attention import LIBRARY as FA_LIB
     from repro_torch.kernels.flash_attention.flash_attention import SOURCE as FA_SRC
     from repro_torch.kernels.flash_attention.flash_attention import library as fa_library
     from repro_torch.kernels.paged_attention.paged_attention import LIBRARY as PA_LIB
     from repro_torch.kernels.paged_attention.paged_attention import SOURCE as PA_SRC
     from repro_torch.kernels.paged_attention.paged_attention import library as pa_library
+    from repro_torch.kernels.wkv6.wkv6 import LIBRARY as WKV_LIB
+    from repro_torch.kernels.wkv6.wkv6 import SOURCE as WKV_SRC
+    from repro_torch.kernels.wkv6.wkv6 import library as wkv_library
 
     t0 = time.perf_counter()
     _build.build_libraries({"fedfog_delta_pipeline": [cu.SOURCE], FA_LIB: [FA_SRC],
-                            PA_LIB: [PA_SRC]})
-    say("build", libraries=3, wall_s=time.perf_counter() - t0)
-    for kl in (cu.library(), fa_library(), pa_library()):
+                            PA_LIB: [PA_SRC], WKV_LIB: [WKV_SRC]})
+    say("build", libraries=4, wall_s=time.perf_counter() - t0)
+    fedavg_library()  # K1's entry point in the delta pipeline's library
+    for kl in (cu.library(), fa_library(), pa_library(), wkv_library()):
         ptxas = [ln.strip() for ln in kl.log_path.read_text().splitlines()
                  if "registers" in ln or "bytes stack" in ln or "Compiling entry" in ln]
         say("build", library=kl.path.name, seconds=kl.build_seconds)
@@ -780,17 +1262,22 @@ def main() -> int:
             print(f"[build] ptxas {ln}", flush=True)
 
     # 3. kernels against their plain versions, then timing
-    kernels = phase_kernels(torch, dp)
-    kernels += phase_attention_kernels(torch)
+    kernels = {k["name"]: k for k in phase_kernels(torch, dp)}
+    kernels.update((k["name"], k) for k in phase_attention_kernels(torch))
+    k6 = phase_wkv6_kernel(torch)
+    kernels[k6["name"]] = k6
 
-    # 4. the slices: the port's main paths
+    # 4. the slices: the port's main paths; K1 is on none of them, and its
+    # launches are summed over every counted run
     from repro_torch.fl import simulator as sim_mod
 
-    run_slice(torch, cu, sim_mod, 1)  # warm-up: cuBLAS handles, allocator
-    hist, launches, _, seconds, peak = run_slice(torch, cu, sim_mod, 20)
+    k1_launches = 0
+    run_slice(torch, sim_mod, 1)  # warm-up: cuBLAS handles, allocator
+    hist, launches, _, seconds, peak = run_slice(torch, sim_mod, 20)
     expect_launches(launches, delta_pipeline_apply=20, delta_pipeline_partial=0)
-    kernels[0]["launches"] = launches["delta_sq_norms"]
-    kernels[1]["launches"] = launches["delta_pipeline_apply"]
+    k1_launches += launches["fedavg_apply"]
+    kernels["delta_sq_norms"]["launches"] = launches["delta_sq_norms"]
+    kernels["delta_pipeline_apply"]["launches"] = launches["delta_pipeline_apply"]
     acc = hist["accuracy"]
     say("slice", rounds=20, k3_launches=launches["delta_pipeline_apply"],
         k2_launches=launches["delta_sq_norms"], ms_per_round=seconds / 20 * 1e3,
@@ -800,16 +1287,18 @@ def main() -> int:
           "round-0 cold starts != selected clients")
     check(acc[-1] >= 0.85, f"final accuracy {acc[-1]} < 0.85")
     for agg in ("median", "trimmed"):
-        h, ln, _, sec, pk = run_slice(torch, cu, sim_mod, 3, aggregator=agg)
+        h, ln, _, sec, pk = run_slice(torch, sim_mod, 3, aggregator=agg)
         expect_launches(ln, delta_pipeline_apply=3)
+        k1_launches += ln["fedavg_apply"]
         say("slice", aggregator=agg, rounds=3, k3_launches=ln["delta_pipeline_apply"],
             ms_per_round=sec / 3 * 1e3, accuracy=[round(a, 4) for a in h["accuracy"]])
 
-    run_slice(torch, cu, sim_mod, 1, **POP_FOG)  # warm-up of the population path
-    hist, launches, init_s, seconds, peak = run_slice(torch, cu, sim_mod, 20, **POP_FOG)
+    run_slice(torch, sim_mod, 1, **POP_FOG)  # warm-up of the population path
+    hist, launches, init_s, seconds, peak = run_slice(torch, sim_mod, 20, **POP_FOG)
     expect_launches(launches, delta_pipeline_partial=80, delta_pipeline_apply=0,
                     delta_sq_norms=0)
-    kernels[2]["launches"] = launches["delta_pipeline_partial"]
+    k1_launches += launches["fedavg_apply"]
+    kernels["delta_pipeline_partial"]["launches"] = launches["delta_pipeline_partial"]
     acc = hist["accuracy"]
     say("slice", path="population+fog", population=POP_FOG["population"],
         cohort=POP_FOG["num_clients"], fog_nodes=POP_FOG["fog_nodes"], rounds=20,
@@ -827,18 +1316,25 @@ def main() -> int:
         ("dense, four fogs", dict(fog_nodes=4),
          dict(delta_pipeline_partial=12, delta_pipeline_apply=0)),
     ):
-        h, ln, ini, sec, _ = run_slice(torch, cu, sim_mod, 3, **over)
+        h, ln, ini, sec, _ = run_slice(torch, sim_mod, 3, **over)
         expect_launches(ln, **want)
+        k1_launches += ln["fedavg_apply"]
         say("slice", path=repr(name), rounds=3, launches=ln, init_s=ini,
             ms_per_round=sec / 3 * 1e3, accuracy=[round(a, 4) for a in h["accuracy"]])
 
-    # the serving slice: K5 per admission, K7 per decode step
-    launches = phase_serving(torch, cu)
-    kernels[3]["launches"] = launches["flash_attention_fwd"]
-    kernels[4]["launches"] = launches["paged_attention_fwd"]
+    # the serving slices: llama (K5 per admission, K7 per decode step), then
+    # rwkv6 (K6 per layer of every admission)
+    launches = phase_serving(torch)
+    k1_launches += launches["fedavg_apply"]
+    kernels["flash_attention_fwd"]["launches"] = launches["flash_attention_fwd"]
+    kernels["paged_attention_fwd"]["launches"] = launches["paged_attention_fwd"]
+    launches = phase_serving_rwkv6(torch)
+    k1_launches += launches["fedavg_apply"]
+    kernels["wkv6_fwd"]["launches"] = launches["wkv6_fwd"]
+    kernels["fedavg_apply"]["launches"] = k1_launches
 
-    # 5. result
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # 5. result: K1 to K7
+    print(json.dumps({"kernels": [kernels[name] for name in kernel_counters()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

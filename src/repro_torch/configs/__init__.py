@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 # The JAX package's roster; the ones not in _MODULES come with their family.

@@ -80,13 +80,15 @@ def model_params_from_jax(cfg, params, device=None):
     """The JAX package's LM parameter tree (``Model.init``; leaves numpy or
     anything ``np.asarray`` takes) -> the port's, on the CUDA card unless
     ``device`` names another. Both packages keep one layout (``wq`` as
-    (L, d, H, hd) and so on), so each leaf carries over as it is; the
-    tree is checked against the port's declarations for ``cfg``."""
-    from repro_torch.models.transformer import param_decls
+    (L, d, H, hd) and so on), so each leaf carries over as it is, in its
+    own dtype (rwkv6's ``decay`` and ``u`` are float32 in a bf16 tree);
+    the tree is checked against the declarations of ``cfg``'s family, in
+    keys, shapes and dtypes."""
+    from repro_torch.models.api import decls as family_decls
 
     device = resolve_device(device)
     out = _tensor_tree(params, device)
-    decls = param_decls(cfg)
+    decls = family_decls(cfg)
 
     def check(d, t, path):
         if set(d) != set(t):
@@ -96,6 +98,8 @@ def model_params_from_jax(cfg, params, device=None):
                 check(d[k], t[k], f"{path}/{k}")
             elif tuple(t[k].shape) != d[k].shape:
                 raise ValueError(f"{path}/{k}: shape {tuple(t[k].shape)} != {d[k].shape}")
+            elif t[k].dtype != getattr(torch, d[k].dtype):
+                raise ValueError(f"{path}/{k}: dtype {t[k].dtype} != {d[k].dtype}")
 
     check(decls, out, "")
     return out

@@ -20,6 +20,13 @@
 //       or apply: the cloud combines the fogs' partials (fl/fog.py). It is
 //       `fedavg_kernel` instantiated with kPartial, so its transform, client
 //       order and FMA are K3's and the family's arithmetic stays one.
+//   fedfog_fedavg_apply  replaces the Pallas kernel `_fedavg_kernel`
+//       (src/repro/kernels/fedavg/fedavg.py:68, pallas_call of
+//       `fedavg_apply`, K1): out = base + sum_i wn[i] * upd[i, :] with the
+//       weight row lr * m * w / (sum m * w + 1e-12) built outside, float32
+//       or bfloat16 updates, base and out. It is `fedavg_kernel` with every
+//       gate off, lr = 1 and the element type T = the updates' dtype: K3's
+//       client order and FMAs, its apply as one FMA, a single rounding to T.
 //
 // What bounds them on an H100: device-memory bytes (K4 reads its C_local*P*4
 // bytes once and writes P*4). The pipeline reads the
@@ -44,6 +51,7 @@
 // the selected clients, C <= 256), which spills to local memory; a
 // warp-cooperative sorting network would keep it in registers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -59,9 +67,22 @@ enum Compression { kNone = 0, kInt8 = 1, kTopk = 2 };
 enum Aggregator { kFedavg = 0, kMedian = 1, kTrimmed = 2 };
 enum Optimizer { kPlain = 0, kFedavgm = 1, kFedadam = 2 };
 
-struct PipelineArgs {
-  const float* upd;    // (C, P)
-  const float* base;   // (P,)
+// Reads and writes of the (C, P) deltas, the base and the output in their
+// element type T (float for K2-K4, float or bfloat16 for K1); all
+// arithmetic is float32.
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T>
+struct Args {
+  const T* upd;        // (C, P)
+  const T* base;       // (P,)
   const float* wn;     // (C,) Eq. 6 weights, or the 0/1 mask (robust)
   const int* cnt;      // (2,) [num_sel, k_trim], robust only
   const float* pre;    // (C,) clip scales or null
@@ -69,7 +90,7 @@ struct PipelineArgs {
   const float* tab;    // (C, L) int8 scales / top-k thresholds or null
   const float* noise;  // (P,) DP noise or null
   const float* mu;     // (P,) server momentum or null
-  float* out;          // (P,)
+  T* out;              // (P,)
   float* new_mu;       // (P,) or null
   long long P;
   int C;
@@ -79,6 +100,7 @@ struct PipelineArgs {
   int compression;
   int optimizer;
 };
+using PipelineArgs = Args<float>;
 
 __global__ void __launch_bounds__(kNormThreads)
 sq_norms_kernel(const float* __restrict__ upd, float* __restrict__ out,
@@ -112,8 +134,9 @@ sq_norms_kernel(const float* __restrict__ upd, float* __restrict__ out,
 
 // Clip pre-scale, then compression emulation with the client's table entry
 // for this column's leaf (the Pallas kernel's L-way select chain).
+template <typename T>
 __device__ __forceinline__ float transform(float x, int c, int sg,
-                                           const PipelineArgs& a,
+                                           const Args<T>& a,
                                            const float* s_pre) {
   if (a.pre != nullptr) x = __fmul_rn(x, s_pre[c]);
   if (a.compression != kNone) {
@@ -131,10 +154,11 @@ __device__ __forceinline__ float transform(float x, int c, int sg,
 // + DP noise, server momentum, apply. The plain path is one FMA like the
 // reference's fused `base + lr * agg`; the momentum paths round each op
 // separately, as the plain PyTorch version does.
+template <typename T>
 __device__ __forceinline__ void epilogue(float agg, long long p,
-                                         const PipelineArgs& a) {
+                                         const Args<T>& a) {
   if (a.noise != nullptr) agg = __fadd_rn(agg, __ldg(a.noise + p));
-  const float base = __ldg(a.base + p);
+  const float base = load_f(a.base + p);
   if (a.mu != nullptr) {
     const float mu2 = __fadd_rn(__fmul_rn(a.server_momentum, __ldg(a.mu + p)), agg);
     a.new_mu[p] = mu2;
@@ -142,13 +166,14 @@ __device__ __forceinline__ void epilogue(float agg, long long p,
     if (a.optimizer == kFedadam) {
       step = __fdiv_rn(step, __fadd_rn(sqrtf(__fmul_rn(agg, agg)), 1e-3f));
     }
-    a.out[p] = __fadd_rn(base, step);
+    store_f(a.out + p, __fadd_rn(base, step));
   } else {
-    a.out[p] = fmaf(a.lr, agg, base);
+    store_f(a.out + p, fmaf(a.lr, agg, base));
   }
 }
 
-__device__ __forceinline__ void stage_rows(const PipelineArgs& a, float* s_wn,
+template <typename T>
+__device__ __forceinline__ void stage_rows(const Args<T>& a, float* s_wn,
                                            float* s_pre) {
   for (int c = threadIdx.x; c < a.C; c += blockDim.x) {
     s_wn[c] = a.wn[c];
@@ -158,8 +183,9 @@ __device__ __forceinline__ void stage_rows(const PipelineArgs& a, float* s_wn,
 }
 
 // kPartial: write the raw weighted sum (K4) instead of running the epilogue.
-template <bool kPartial>
-__global__ void __launch_bounds__(kThreads) fedavg_kernel(PipelineArgs a) {
+// T: the element type of the deltas, the base and the output.
+template <bool kPartial, typename T = float>
+__global__ void __launch_bounds__(kThreads) fedavg_kernel(Args<T> a) {
   extern __shared__ float smem[];
   float* s_wn = smem;
   float* s_pre = smem + a.C;
@@ -185,10 +211,10 @@ __global__ void __launch_bounds__(kThreads) fedavg_kernel(PipelineArgs a) {
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int c = c0 + b;
-      const float* row = a.upd + static_cast<long long>(c) * a.P + p0;
+      const T* row = a.upd + static_cast<long long>(c) * a.P + p0;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        x[b][j] = (c < a.C && ok[j]) ? __ldg(row + j * kThreads) : 0.f;
+        x[b][j] = (c < a.C && ok[j]) ? load_f(row + j * kThreads) : 0.f;
       }
     }
 #pragma unroll
@@ -207,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) fedavg_kernel(PipelineArgs a) {
   for (int j = 0; j < kCols; ++j) {
     if (!ok[j]) continue;
     if constexpr (kPartial) {
-      a.out[p0 + j * kThreads] = acc[j];
+      store_f(a.out + p0 + j * kThreads, acc[j]);
     } else {
       epilogue(acc[j], p0 + j * kThreads, a);
     }
@@ -319,6 +345,33 @@ int fedfog_delta_pipeline_partial(const float* upd, const float* dm,
   const dim3 grid(static_cast<unsigned>((P + per_block - 1) / per_block));
   const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(C);
   fedavg_kernel<true><<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1: out (D,) = base + sum over the N clients of wn[i] * upd[i, :], wn the
+// lr-scaled normalised weight row. dtype: 0 = float32, 1 = bfloat16, one
+// type for upd, base and out.
+int fedfog_fedavg_apply(const void* upd, const void* base, const float* wn,
+                        void* out, int N, long long D, int dtype, void* stream) {
+  if (N <= 0 || D <= 0 || N > 4096) return -1;
+  const long long per_block = static_cast<long long>(kThreads) * kCols;
+  const dim3 grid(static_cast<unsigned>((D + per_block - 1) / per_block));
+  const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(N);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    Args<float> a{static_cast<const float*>(upd), static_cast<const float*>(base), wn,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  static_cast<float*>(out), nullptr, D, N, 0, 1.f, 0.f, kNone, kPlain};
+    fedavg_kernel<false, float><<<grid, kThreads, shmem, s>>>(a);
+  } else if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    Args<bf16> a{static_cast<const bf16*>(upd), static_cast<const bf16*>(base), wn,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 static_cast<bf16*>(out), nullptr, D, N, 0, 1.f, 0.f, kNone, kPlain};
+    fedavg_kernel<false, bf16><<<grid, kThreads, shmem, s>>>(a);
+  } else {
+    return -1;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

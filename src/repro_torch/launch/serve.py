@@ -3,9 +3,12 @@
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --scale full \
         --engine continuous --attn paged --flash
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --scale full \
+        --engine continuous
 
-``--scale tiny`` runs the reduced config, ``--scale full`` the assigned
-one on one device. Engines:
+``--arch`` takes the registered architectures: llama3.2-1b (DENSE) and
+rwkv6-1.6b (SSM, prefill through K6). ``--scale tiny`` runs the reduced
+config, ``--scale full`` the assigned one on one device. Engines:
 
   * ``--engine static`` (default) — one fixed batch, prefill + N decode
     steps; greedy tokens accumulate in a device buffer read once at the
@@ -16,7 +19,9 @@ one on one device. Engines:
     ``--attn paged`` for K7 (``--attn dense`` reproduces the sequential
     per-request decode token for token).
 
-``--flash`` sets ``attn_impl="flash"``: prefill through K5. The mesh
+``--flash`` sets ``attn_impl="flash"``: prefill through K5. For rwkv6,
+which has no attention, ``--flash`` and ``--attn`` have no effect, as in
+the JAX launcher. The mesh
 options of the JAX launcher (``--devices``, ``--multi-pod``,
 ``--reduced``) belong to the distributed path and raise until ROADMAP.md
 queue 1, item 11 ports it; ``--track`` waits for item 7(e).

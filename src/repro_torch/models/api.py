@@ -1,8 +1,8 @@
-"""Uniform model interface (port of ``repro/models/api.py``), DENSE
-family only for now.
+"""Uniform model interface (port of ``repro/models/api.py``), for the
+DENSE and SSM (rwkv6) families.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods close over the
-config:
+config and dispatch on its family, as the JAX package's do:
 
     model.init(generator)                      -> params (on its device)
     model.prefill(params, batch, cache_len)    -> (logits, cache)
@@ -19,10 +19,26 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import transformer
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import rwkv6, transformer
+from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.params import count
 from repro_torch.models.transformer import Runtime
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """The families the port builds: DENSE (no experts) and SSM."""
+    if cfg.family is not Family.SSM:
+        transformer.check_dense(cfg)
+
+
+def _mod(cfg: ModelConfig):
+    check_family(cfg)
+    return rwkv6 if cfg.family is Family.SSM else transformer
+
+
+def decls(cfg: ModelConfig):
+    """The family's parameter declarations."""
+    return _mod(cfg).param_decls(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,13 +46,13 @@ class Model:
     cfg: ModelConfig
 
     def init(self, generator: torch.Generator):
-        return transformer.init_params(self.cfg, generator)
+        return _mod(self.cfg).init_params(self.cfg, generator)
 
     def param_count(self) -> int:
-        return count(transformer.param_decls(self.cfg))
+        return count(decls(self.cfg))
 
     def active_param_count(self) -> int:
-        return self.param_count()  # DENSE: every parameter is active
+        return self.param_count()  # DENSE and SSM: every parameter is active
 
     def flops_per_token(self, train: bool = True) -> float:
         """MODEL_FLOPS basis: 6·N_active (train) / 2·N_active (forward),
@@ -54,16 +70,16 @@ class Model:
         )
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
-        return transformer.init_cache(self.cfg, batch_size, max_len, device=device)
+        return _mod(self.cfg).init_cache(self.cfg, batch_size, max_len, device=device)
 
     def prefill(self, params, batch, cache_len: int, runtime: Runtime = Runtime()):
-        return transformer.prefill(params, self.cfg, tokens=batch["tokens"],
-                                   cache_len=cache_len, runtime=runtime)
+        return _mod(self.cfg).prefill(params, self.cfg, tokens=batch["tokens"],
+                                      cache_len=cache_len, runtime=runtime)
 
     def decode_step(self, params, cache, tokens, runtime: Runtime = Runtime()):
-        return transformer.decode_step(params, self.cfg, cache, tokens, runtime)
+        return _mod(self.cfg).decode_step(params, self.cfg, cache, tokens, runtime)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    transformer.check_dense(cfg)
+    check_family(cfg)
     return Model(cfg)

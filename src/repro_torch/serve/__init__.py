@@ -5,7 +5,9 @@ of ``repro/serve``).
     scheduler.py — host control plane: slot scheduler + page allocator.
     paged.py     — device state and programs: paged KV pool, admission
                    (prefill with K5 -> page scatter), the one batched
-                   decode step (dense gather or K7).
+                   decode step (dense gather or K7); for rwkv6 the
+                   slot-indexed recurrent state, admission through K6
+                   and the plain one-token recurrence.
     costs.py     — §IV.F virtual latency/energy on ``RoundCostModel``.
     engine.py    — ``ContinuousBatchingEngine``.
     oracle.py    — ``SequentialOracle``, the per-request reference.

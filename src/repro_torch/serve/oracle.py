@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model
-from repro_torch.models.transformer import Runtime, check_dense
+from repro_torch.models.transformer import Runtime
 from repro_torch.serve.arrivals import RequestTrace
 from repro_torch.serve.costs import ServeCostModel
 from repro_torch.serve.engine import EngineConfig, ServeReport, summarize
-from repro_torch.serve.paged import PagePlan
+from repro_torch.serve.paged import PagePlan, check_family
 
 
 class SequentialOracle:
@@ -29,7 +29,7 @@ class SequentialOracle:
 
     def __init__(self, model: Model, params, cfg: EngineConfig = EngineConfig(),
                  cost: ServeCostModel = ServeCostModel(), runtime: Runtime = Runtime()):
-        check_dense(model.cfg)
+        check_family(model.cfg)
         self.model = model
         self.params = params
         self.cfg = cfg

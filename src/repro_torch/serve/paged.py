@@ -20,9 +20,16 @@ Attention modes:
   * ``paged`` — K7, the hand-written paged decode kernel (its plain
     version on the CPU): no gathered cache is made.
 
+Families: DENSE routes through the paged KV pool; SSM (rwkv6) keeps an
+O(1) recurrent state per slot, so its "pool" is the slot-indexed state
+(``wkv`` / ``tm_x`` / ``cm_x``), its admission prefills through K6 and
+writes the final state into the slot, its decode step runs
+``rwkv6.decode_step`` over every slot, and the attention modes and page
+ids are not read. Other families raise (:func:`check_family`).
+
 The pool, the next tokens and the output buffer belong to the engine that
 made them, so both programs write them IN PLACE (``index_put_``; the
-JAX package's programs donate them instead). DENSE family only for now.
+JAX package's programs donate them instead).
 """
 from __future__ import annotations
 
@@ -32,13 +39,27 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import gather_pages, paged_attention
+from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tf
 from repro_torch.models.api import Model
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.api import check_family as check_built
+from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.layers import attention_decode, rms_norm
 from repro_torch.models.transformer import Runtime, static_layer_meta
 
 ATTN_MODES = ("dense", "paged")
+_SSM_STATE = ("wkv", "tm_x", "cm_x")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Continuous batching serves the families the port builds: DENSE and
+    SSM."""
+    if cfg.family is Family.ENCDEC:
+        raise NotImplementedError(
+            "continuous batching does not cover ENCDEC: the cross-attention "
+            "source cache is per-request ragged in a second axis"
+        )
+    check_built(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,19 +101,25 @@ class PagePlan:
     def build(cls, cfg: ModelConfig, prompt_len: int, max_gen: int,
               page_size: int = 16, n_patches: int = 8) -> "PagePlan":
         del n_patches  # VLM frontends are not ported; no patches prepended
-        tf.check_dense(cfg)
+        check_family(cfg)
         return cls(page_size=page_size, prompt_len=prompt_len, n_patches=0,
                    max_gen=max_gen)
 
 
 def init_pool(cfg: ModelConfig, plan: PagePlan, slots: int, num_pages: int,
               dtype=None, device=None):
-    """Zeroed k/v pools (L, num_pages + 1, page, Hkv, hd) on the CUDA card
-    unless ``device`` names another: physical page 0 is the trash page."""
-    del slots  # the DENSE family keeps no per-slot state besides its pages
-    tf.check_dense(cfg)
-    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    """Zeroed device state on the CUDA card unless ``device`` names
+    another. DENSE: k/v pools (L, num_pages + 1, page, Hkv, hd), physical
+    page 0 the trash page. SSM: the slot-indexed recurrent state of
+    ``rwkv6.init_cache`` without ``pos`` (per-slot positions are host
+    state in serving)."""
+    check_family(cfg)
     device = resolve_device(device)
+    if cfg.family is Family.SSM:
+        pool = rwkv6.init_cache(cfg, slots, 0, device=device)
+        pool.pop("pos")
+        return pool
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
     shape = (cfg.num_layers, num_pages + 1, plan.page_size, cfg.num_kv_heads,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -103,23 +130,29 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
     """Returns ``admit(params, pool, tokens, out_buf, prompt, pages, slot,
     req) -> (pool, tokens, out_buf)``, writing its three state arguments
     in place. ``prompt`` is (1, prompt_len) on the device, ``pages`` the
-    (prompt_pages,) physical page ids on the device, ``slot``/``req``
-    ints."""
+    (prompt_pages,) physical page ids on the device (not read for SSM),
+    ``slot``/``req`` ints. SSM writes the prefill's final state into the
+    slot's rows of the state."""
     cfg = model.cfg
-    tf.check_dense(cfg)
+    check_family(cfg)
+    ssm = cfg.family is Family.SSM
     # Prefill fills whole pages; the padding past the prompt is zeros,
     # overwritten once decode reaches it.
     prefill_len = plan.prompt_pages * plan.page_size
-    shape = (cfg.num_layers, plan.prompt_pages, plan.page_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = None if ssm else (cfg.num_layers, plan.prompt_pages, plan.page_size,
+                              cfg.num_kv_heads, cfg.head_dim)
 
     @torch.no_grad()
     def admit(params, pool, tokens, out_buf, prompt, pages, slot: int, req: int):
         logits, cache = model.prefill(params, {"tokens": prompt}, cache_len=prefill_len,
                                       runtime=runtime)
         first = torch.argmax(logits[0, -1], dim=-1)
-        pool["k"][:, pages] = cache["k"][:, 0].reshape(shape)
-        pool["v"][:, pages] = cache["v"][:, 0].reshape(shape)
+        if ssm:
+            for key in _SSM_STATE:
+                pool[key][:, slot] = cache[key][:, 0]
+        else:
+            pool["k"][:, pages] = cache["k"][:, 0].reshape(shape)
+            pool["v"][:, pages] = cache["v"][:, 0].reshape(shape)
         tokens[slot, 0] = first
         out_buf[req, 0] = first.to(out_buf.dtype)
         return pool, tokens, out_buf
@@ -173,18 +206,24 @@ def make_decode_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime(),
     that serves the whole trace. ``pool`` and ``out_buf`` are written in
     place, ``tokens`` comes back new. ``out_req``/``out_idx`` route each
     slot's token into the output buffer; the host passes the trash row for
-    inactive slots."""
+    inactive slots. SSM advances every slot's state (an inactive slot's is
+    overwritten at its next admission) and reads neither the page table
+    nor the positions."""
     cfg = model.cfg
-    tf.check_dense(cfg)
+    check_family(cfg)
     if attn not in ATTN_MODES:
         raise ValueError(f"attn must be one of {ATTN_MODES}, got {attn!r}")
 
     @torch.no_grad()
     def step(params, pool, tokens, out_buf, page_table, positions, active, out_req,
              out_idx):
-        logits, pool = _paged_transformer_step(params, cfg, plan, pool, tokens,
-                                               page_table, positions, active,
-                                               runtime, attn)
+        if cfg.family is Family.SSM:
+            logits, cache = rwkv6.decode_step(params, cfg, dict(pool, pos=0), tokens)
+            pool = {key: cache[key] for key in _SSM_STATE}
+        else:
+            logits, pool = _paged_transformer_step(params, cfg, plan, pool, tokens,
+                                                   page_table, positions, active,
+                                                   runtime, attn)
         nxt = torch.argmax(logits[:, -1], dim=-1)  # (S,)
         out_buf[out_req, out_idx] = nxt.to(out_buf.dtype)
         return pool, nxt[:, None], out_buf

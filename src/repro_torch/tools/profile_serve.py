@@ -2,13 +2,15 @@
 on the card.
 
     PYTHONPATH=src python3 -m repro_torch.tools.profile_serve [--steps 10]
-        [--attn paged|dense] [--slots 8] [--prompt-len 128]
+        [--arch llama3.2-1b|rwkv6-1.6b] [--attn paged|dense] [--slots 8]
+        [--prompt-len 128]
 
-Builds full-width llama3.2-1b in bf16 with ``attn_impl="flash"`` (random
-weights from a seed), admits one request into every slot through the
-engine's admission program (prefill via K5), and runs the batched decode
-program (``--attn paged``: K7; ``dense``: the gathered cache) over the
-full slot batch:
+Builds the full-width ``--arch`` in bf16 (random weights from a seed;
+llama3.2-1b with ``attn_impl="flash"``), admits one request into every
+slot through the engine's admission program (prefill via K5 for llama,
+K6 for rwkv6), and runs the batched decode program over the full slot
+batch (llama: ``--attn paged`` through K7, ``dense`` over the gathered
+cache; rwkv6: the plain one-token recurrence, ``--attn`` not read):
 
   * three unprofiled passes of ``--steps`` decode steps: the host clock
     around each pass, ending in a synchronise;
@@ -62,6 +64,7 @@ def _profile(fn, n: int, top: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--arch", default="llama3.2-1b", choices=["llama3.2-1b", "rwkv6-1.6b"])
     ap.add_argument("--attn", default="paged", choices=["paged", "dense"])
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=128)
@@ -73,11 +76,13 @@ def main() -> int:
         raise SystemExit("profile_serve: needs a CUDA device")
 
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import Family, build_model
     from repro_torch.serve import paged
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+    cfg = get_config(args.arch)
+    if cfg.family is Family.DENSE:
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -125,8 +130,9 @@ def main() -> int:
         wall.append((time.perf_counter() - t0) / args.steps * 1e3)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "arch": cfg.name, "dtype": cfg.param_dtype, "attn": args.attn,
-        "attn_impl": cfg.attn_impl, "slots": s, "prompt_len": args.prompt_len,
+        "arch": cfg.name, "dtype": cfg.param_dtype,
+        "attn": args.attn if cfg.family is Family.DENSE else None,
+        "attn_impl": cfg.attn_impl if cfg.family is Family.DENSE else None, "slots": s, "prompt_len": args.prompt_len,
         "decode_wall_ms_per_step_by_pass": wall,
         "decode_step": _profile(decode_one, args.steps, args.top),
         "admission": _profile(admit_one, s, args.top),

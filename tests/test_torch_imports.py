@@ -39,6 +39,7 @@ def test_import_loads_no_jax_and_keeps_torch_state():
         "import repro_torch.convert, repro_torch.random\n"
         "import repro_torch.serve.engine, repro_torch.serve.oracle, repro_torch.models.api\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
+        "import repro_torch.kernels.wkv6.ops, repro_torch.kernels.fedavg.ops, repro_torch.models.rwkv6\n"
         "import repro_torch.launch.serve, repro_torch.configs\n"
         "after = (torch.get_num_threads(), torch.get_default_dtype(), "
         "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32, "

@@ -223,3 +223,97 @@ def test_device_state_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg).init_cache(1, 8)
     assert build_model(cfg).init_cache(1, 8, device="cpu")["k"].device.type == "cpu"
+
+
+# --------------------------------------------------------------------- #
+# rwkv6 (the SSM family): the slot-indexed recurrent state, prefill
+# through K6's entry point (its plain version on the CPU)
+# --------------------------------------------------------------------- #
+RWKV = dict(d_model=128, **F32)  # two wkv heads of 64
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    jcfg = jax_reduced("rwkv6-1.6b", loss_chunk=0, **RWKV)
+    jm = jax_build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tcfg = get_reduced("rwkv6-1.6b", **RWKV)
+    tp = convert.model_params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, jm, jp, tcfg, build_model(tcfg), tp
+
+
+def test_rwkv6_engine_and_oracle_match_the_jax_oracle(rwkv):
+    """The engine's tokens equal the port's oracle's, which equal the JAX
+    SequentialOracle's, with the same §IV.F accounting."""
+    jcfg, jm, jp, tcfg, tm, tp = rwkv
+    jt, tt = _traces(jcfg)
+    ref = JaxOracle(jm, jp, JaxEngineConfig(**ECFG)).serve(jt)
+    oracle = SequentialOracle(tm, tp, EngineConfig(**ECFG)).serve(tt)
+    rep = ContinuousBatchingEngine(tm, tp, EngineConfig(**ECFG)).serve(tt)
+    assert rep.completed == oracle.completed == ref.completed == tt.n_requests
+    for req in range(tt.n_requests):
+        assert oracle.tokens_for(req) == ref.tokens_for(req), req
+        assert rep.tokens_for(req) == oracle.tokens_for(req), req
+    for k in ("decode_steps", "cold_starts", "tokens_generated", "slo_violations"):
+        assert getattr(oracle, k) == getattr(ref, k), k
+    np.testing.assert_allclose(oracle.virtual_ms, ref.virtual_ms, rtol=1e-12)
+    np.testing.assert_allclose(oracle.energy_j, ref.energy_j, rtol=1e-12)
+    assert rep.virtual_ms <= oracle.virtual_ms + 1e-6
+    toks = rep.tokens[: tt.n_requests]
+    assert ((toks >= 0) & (toks < tcfg.vocab_size)).all()
+
+
+def test_rwkv6_slot_conservation_under_rejection(rwkv):
+    jcfg, jm, jp, tcfg, tm, tp = rwkv
+    ecfg = EngineConfig(**dict(ECFG, slots=2, max_queue=1, policy="edf"))
+    _, tt = _traces(jcfg, n_requests=12, rate_per_s=5000.0)
+    rep = ContinuousBatchingEngine(tm, tp, ecfg).serve(tt)
+    assert rep.rejected > 0
+    c = rep.counters
+    assert c["arrived"] == tt.n_requests == rep.completed + rep.rejected
+    assert c["in_flight"] == c["waiting"] == 0
+    ref = SequentialOracle(tm, tp, ecfg).serve(tt)
+    done = np.nonzero(~np.isnan(rep.latency_ms))[0]
+    assert done.size == rep.completed
+    for req in done:
+        assert rep.tokens_for(int(req)) == ref.tokens_for(int(req))
+
+
+def test_rwkv6_admission_writes_the_prefill_state_into_its_slot(rwkv):
+    """The pool is the slot-indexed state (no pages, no pos); admission
+    writes the prefill's state into its slot and leaves the others."""
+    *_, tcfg, tm, tp = rwkv
+    plan = paged.PagePlan.build(tcfg, 8, 6, page_size=4)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, 8)))
+    pool, tokens, out_buf, _ = _admitted_pool(tm, tp, plan, prompts, 3, 3 * plan.pages_per_slot)
+    assert set(pool) == {"wkv", "tm_x", "cm_x"}
+    assert tuple(pool["wkv"].shape) == (tcfg.num_layers, 3, 2, 64, 64)
+    with torch.no_grad():
+        logits, cache = tm.prefill(tp, {"tokens": prompts[1:2]}, cache_len=0)
+    for key in pool:
+        torch.testing.assert_close(pool[key][:, 1], cache[key][:, 0], rtol=0, atol=0)
+    assert int(tokens[1, 0]) == int(torch.argmax(logits[0, -1])) == int(out_buf[1, 0])
+
+
+def test_launcher_serves_rwkv6_on_the_cpu():
+    from repro_torch.launch import serve as launch
+
+    rep = launch.main(["--arch", "rwkv6-1.6b", "--device", "cpu", "--scale", "tiny",
+                       "--engine", "continuous", "--requests", "4", "--gen", "4",
+                       "--prompt-len", "8", "--page-size", "4"])
+    assert rep.completed == 4 and rep.rejected == 0
+    out = launch.main(["--arch", "rwkv6-1.6b", "--device", "cpu", "--scale", "tiny",
+                       "--prompt-len", "8", "--gen", "3"])
+    assert tuple(out.shape) == (4, 3)
+
+
+def test_unported_families_do_not_serve():
+    from repro_torch.models import Family
+
+    cfg = get_reduced("llama3.2-1b")
+    hybrid = dataclasses.replace(cfg, family=Family.HYBRID, ssm_state=8)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        paged.PagePlan.build(hybrid, 8, 6)
+    encdec = dataclasses.replace(cfg, family=Family.ENCDEC, num_encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="ENCDEC"):
+        paged.PagePlan.build(encdec, 8, 6)
