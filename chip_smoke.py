@@ -26,12 +26,18 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 112,766) and (32, 65,536) float32; K5 (flash_attention_fwd) held
                 against its plain version at the serving prefill's shape
                 (B=1, H=32, Hkv=8, S=128, hd=64, bf16) and at edge shapes
-                (window, bidirectional, GQA 4 and 1, Sq < Sk, ragged tiles,
-                hd 128 and 16, float32), K7 (paged_attention_fwd) at the
-                decode step's shape (8 slots of 129..160 tokens, page 16) and
-                at edge shapes (ragged and empty slots, windows, trash-page
-                table entries, g 1 and 2); then both timed at the slice's
-                shapes beside the plain version, the bound and SDPA; K6
+                (window, bidirectional, GQA 8, 4 and 1, Sq < Sk, ragged and
+                multi-tile S, every hd from 16 to 128) on both routes (bf16
+                tensor cores, float32 CUDA cores), K7 (paged_attention_fwd)
+                at the decode step's shape (8 slots of 129..160 tokens, page
+                16) and at edge shapes (ragged and empty slots, windows,
+                trash-page table entries, g 1, 2 and 8) and at its split
+                plan's boundaries (one live token, fewer live pages than
+                splits, windows that kill whole splits, 40 pages through
+                the page ring), the kernel's own empty slots exact zeros;
+                then both timed at the slice's shapes beside the plain
+                version, the bound and SDPA, with K7's split plan
+                printed; K6
                 (wkv6_fwd) held against its plain version at the rwkv6
                 prefill's shape (B=1, T=128, H=32, K=V=64, bf16), at B=2
                 with a ragged T=100, at T < 32, in float32, on strided views
@@ -541,6 +547,13 @@ K5_CASES = [
     ("ragged, window, hd 128", 2, 4, 1, 77, 77, 128, 20, False, "bfloat16"),
     ("float32", 1, 8, 2, 64, 64, 64, 0, False, "float32"),
     ("float32, hd 16, ragged", 1, 4, 2, 33, 33, 16, 0, False, "float32"),
+    # the bf16 (tensor-core) route over several 64-key tiles, every head
+    # dim, and GQA 8 (two blocks of four heads per kv head)
+    ("S 200", 1, 32, 8, 200, 200, 64, 0, False, "bfloat16"),
+    ("S 200, hd 128, gqa 8", 1, 16, 2, 200, 200, 128, 0, False, "bfloat16"),
+    ("hd 32, bidirectional, ragged", 2, 8, 2, 50, 50, 32, 0, True, "bfloat16"),
+    ("hd 16, window", 1, 4, 4, 70, 70, 16, 9, False, "bfloat16"),
+    ("float32, S 200, window", 1, 8, 2, 200, 200, 64, 70, False, "float32"),
 ]
 # (name, slots, Hkv, g, hd, page, pages per slot, window (model convention,
 # -1 = global), dtype, lengths or None for the slice's 129..160)
@@ -552,6 +565,17 @@ K7_CASES = [
     ("gqa1, hd 128", 3, 1, 1, 128, 16, 2, -1, "float32", [5, 32, 0]),
     ("window < page span", 5, 2, 2, 64, 4, 5, 6, "float32", [20, 3, 0, 11, 7]),
     ("gqa2, window", 4, 2, 2, 64, 8, 4, 12, "bfloat16", [32, 9, 1, 25]),
+    # the split plan's boundaries (10 pages: 5 blocks of 2): one live
+    # token, fewer live pages than splits, a split's edge and across it,
+    # the full n_pages·page; a window that kills whole splits; 40 pages
+    # (8 blocks of 5, more than the 4-page ring); g 8 with hd 128
+    ("split edges", SLOTS, 8, 4, 64, PAGE, 10, -1, "bfloat16",
+     [1, 31, 32, 33, 160, 0, 64, 65]),
+    ("window kills splits", SLOTS, 8, 4, 64, PAGE, 10, 20, "bfloat16",
+     [160, 150, 100, 1, 0, 37, 80, 129]),
+    ("40 pages, ring", 4, 8, 4, 64, PAGE, 40, -1, "bfloat16", [640, 300, 1, 0]),
+    ("40 pages, ring, window", 4, 2, 4, 64, PAGE, 40, 100, "float32", [640, 300, 99, 0]),
+    ("gqa8, hd 128", 3, 2, 8, 128, 32, 3, -1, "bfloat16", [96, 33, 0]),
 ]
 # bf16 outputs: the kernel and the plain version both compute in float32
 # and round once to bf16, in another order; they may land one bf16 step
@@ -599,7 +623,8 @@ def phase_attention_kernels(torch):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
     from repro_torch.kernels.paged_attention import (gather_pages, paged_attention,
                                                      paged_attention_ref)
-    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.paged_attention import (paged_attention_cuda,
+                                                                     split_plan)
 
     dev = torch.device("cuda")
     errs = {"flash_attention_fwd": 0.0, "paged_attention_fwd": 0.0}
@@ -629,6 +654,7 @@ def phase_attention_kernels(torch):
         q, kp, vp, table, lens = paged_inputs(torch, s, hkv, g, hd, page, n, dtype,
                                               lengths, 200 + i, dev)
         out = paged_attention(q, kp, vp, table, lens, win)
+        raw = paged_attention_cuda(q, kp, vp, table, lens, window=max(win, 0))
         # The plain version (gather + attention_decode) runs in the model
         # dtype and so rounds the scores and the softmax weights to bf16,
         # where the kernel keeps both in float32. Held here: the plain
@@ -640,9 +666,13 @@ def phase_attention_kernels(torch):
         torch.cuda.synchronize()
         err = attn_err(torch, out, ref, dtype, f"paged {name}")
         check(bool((out[lens == 0] == 0).all()), f"paged {name}: empty slot not zero")
+        check(bool((raw[lens == 0] == 0).all()), f"paged {name}: the kernel's empty slot")
+        check(torch.equal(raw[lens > 0], out[lens > 0]), f"paged {name}: ops vs kernel")
         rtol, atol = ATTN_TOL[dtype]
+        splits, pps = split_plan(n)
         say("kernels", kernel="paged_attention_fwd", case=repr(name), slots=s, Hkv=hkv,
-            g=g, hd=hd, page=page, pages_per_slot=n, window=win, dtype=dtype,
+            g=g, hd=hd, page=page, pages_per_slot=n, splits=splits, pages_per_split=pps,
+            window=win, dtype=dtype,
             lengths=lens.tolist(), max_abs_err=err, atol=atol, rtol=rtol,
             max_abs_diff_to_plain_in_model_dtype=float((out.float() - ref_lp.float()).abs().max()))
         errs["paged_attention_fwd"] = max(errs["paged_attention_fwd"], err)
@@ -687,6 +717,9 @@ def phase_attention_kernels(torch):
         dtype="bfloat16", ms=t["k5"], plain_ms=t["k5_plain"], library_ms=t["k5_lib"],
         library="F.scaled_dot_product_attention(is_causal, enable_gqa)", bound_ms=b5,
         bytes=k5_bytes, operations=k5_ops, share_of_bound=b5 / t["k5"])
+    splits, pps = split_plan(n_tab)
+    say("timing", kernel="paged_attention_fwd", split_plan=f"{splits} x {pps} pages",
+        grid=[splits, hkv, SLOTS], cluster=[splits, 1, 1], threads=32 * (h // hkv))
     say("timing", kernel="paged_attention_fwd", slots=SLOTS, Hkv=hkv, g=h // hkv, hd=hd,
         page=PAGE, lengths=lens.tolist(), dtype="bfloat16", ms=t["k7"],
         plain_ms=t["k7_plain"], library_ms=t["k7_lib"],

@@ -2,12 +2,17 @@
 ``repro/kernels/flash_attention/flash_attention.py``).
 
 ``flash_attention_cuda`` launches the kernel of ``csrc/flash_attention.cu``
-on CUDA tensors only: it checks device, dtype (float32 or bfloat16),
-shapes and the contiguous head_dim, allocates the output with
-``torch.empty``, launches on the current stream and raises if the launch
-is refused. It takes the model's layout (B, S, H, hd) and reads it
-through strides, so any view with a contiguous head_dim goes in without
-a copy: the Pallas kernel's (B, H, S, hd) tensors as ``x.transpose(1, 2)``.
+on CUDA tensors only: it checks device, dtype, shapes and the contiguous
+head_dim, allocates the output with ``torch.empty``, launches on the
+current stream and raises if the launch is refused. The dtype picks one
+of the source's two kernels, both held against the plain version:
+bfloat16 goes to the tensor-core kernel, which copies K and V in 16-byte
+pieces (so its rows must be 16-byte aligned, checked here), float32 to
+the CUDA-core kernel, since bf16 tensor cores would not keep float32
+inputs to float32's tolerance. It takes the model's layout (B, S, H, hd)
+and reads it through strides, so any view with a contiguous head_dim
+goes in without a copy: the Pallas kernel's (B, H, S, hd) tensors as
+``x.transpose(1, 2)``.
 ``flash_attention_cuda.launches`` grows by one per launch.
 ``ops.py`` sends CPU tensors to the plain version in ``ref.py`` instead.
 """
@@ -57,6 +62,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not match")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(f"{name}: the bfloat16 kernel needs 16-byte aligned rows "
+                                 f"(got strides {t.stride()})")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, out)]  # b, h, s
     lib = library().lib

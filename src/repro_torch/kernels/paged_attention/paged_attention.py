@@ -3,8 +3,10 @@
 
 ``paged_attention_cuda`` launches the kernel of ``csrc/paged_attention.cu``
 on CUDA tensors only: it checks device, dtype (float32 or bfloat16 for
-q and the pools, int32 for the table and lengths), shapes and
-contiguity, allocates the output with ``torch.empty``, launches on the
+q and the pools, int32 for the table and lengths), shapes, contiguity
+and the pools' 16-byte alignment, picks the split plan (``split_plan``,
+from the table's width alone), allocates the output with ``torch.empty``,
+launches one cluster of ``splits`` blocks per (slot, kv head) on the
 current stream and raises if the launch is refused.
 ``paged_attention_cuda.launches`` grows by one per launch. ``ops.py``
 sends CPU tensors to the plain version in ``ref.py`` instead.
@@ -24,14 +26,28 @@ LIBRARY = "fedfog_paged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_PAGE = 32  # one lane per key of a page
+MAX_SPLITS = 8  # the portable cluster size
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def split_plan(n_pages: int) -> tuple[int, int]:
+    """(splits, pages per split) for a table of ``n_pages`` columns: the
+    fewest pages per block that fit the slot in one cluster of at most
+    ``MAX_SPLITS`` blocks, and no block without a page (10 pages -> 5
+    blocks of 2). Takes the table's width, a Python int, never a tensor:
+    the decode step must not wait for the device to learn a slot's
+    length."""
+    if type(n_pages) is not int or n_pages < 1:
+        raise TypeError(f"n_pages must be a positive Python int, got {n_pages!r}")
+    pps = -(-n_pages // MAX_SPLITS)
+    return -(-n_pages // pps), pps
 
 
 @functools.cache
 def library():
     """Build (first use) and load the kernel; returns the KernelLibrary."""
     kl = load_library(LIBRARY, [SOURCE])
-    kl.lib.fedfog_paged_attention_fwd.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    kl.lib.fedfog_paged_attention_fwd.argtypes = [_P] * 6 + [_I] * 10 + [_P]
     kl.lib.fedfog_paged_attention_fwd.restype = _I
     return kl
 
@@ -57,6 +73,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
     _check(q, "q", dev, tuple(_DTYPES))
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _check(t, name, dev, (q.dtype,))
+        if t.data_ptr() % 16:  # the kernel copies the pools in 16-byte pieces
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name, t in (("page_table", page_table), ("lengths", lengths)):
         _check(t, name, dev, (torch.int32,))
     s, h, hd = q.shape
@@ -71,6 +89,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
     if hd not in HEAD_DIMS or not 1 <= page <= MAX_PAGE or g > 32:
         raise ValueError(f"head_dim {hd} (of {HEAD_DIMS}), page {page} (<= {MAX_PAGE}) "
                          f"or group {g} (<= 32) not supported")
+    splits, pps = split_plan(n_pages)
     out = torch.empty_like(q)
     lib = library().lib
     with torch.cuda.device(dev):
@@ -78,7 +97,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
         rc = lib.fedfog_paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], s, hkv, g, hd, page,
-            n_pages, int(window), stream,
+            n_pages, splits, pps, int(window), stream,
         )
     if rc != 0:
         raise RuntimeError(f"paged_attention: launch failed (code {rc})")

@@ -1,19 +1,25 @@
 """K5 and K7, the hand-written CUDA kernels, against their plain versions
 on the card, at the cases of the CPU parity tests (numpy-seeded float32
-inputs, tolerances 1e-5 for K5 and 2e-5 for K7 as there). These need a
-CUDA card (an H100 for sm_90a) and skip without one; the file imports no
-JAX, so on the card it runs alone:
+inputs, tolerances 1e-5 for K5 and 2e-5 for K7 as there); K5's bfloat16
+(tensor-core) route at the same cases, against the plain version in
+float32 rounded once to bf16 (rtol 1e-2, atol 1e-3: one bf16 step);
+and K7 at the boundaries of its split plan. These need a CUDA card (an
+H100 for sm_90a) and skip without one; the file imports no JAX, so on
+the card it runs alone:
 
     PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_attention_cuda.py
 """
 import numpy as np
 import pytest
 import torch
-from _attention_cases import FLASH_CASES, PAGED_CASES, flash_inputs, paged_inputs
+from _attention_cases import (FLASH_CASES, PAGED_CASES, PAGED_SPLIT_CASES, flash_inputs,
+                              paged_inputs)
 
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref
+from repro_torch.kernels.paged_attention.paged_attention import (paged_attention_cuda,
+                                                                 split_plan)
 
 
 def _card():
@@ -32,6 +38,40 @@ def test_flash_kernel_matches_plain_version(case):
                                bidirectional=bidir).transpose(1, 2)
     ref = flash_attention_ref(q, k, v, window=window, bidirectional=bidir)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_bf16_kernel_matches_plain_version(case):
+    """The tensor-core route: bf16 inputs, held against the plain version on
+    the same values in float32, rounded once to bf16."""
+    _card()
+    b, h, hkv, sq, sk, hd, window, bidir = case
+    q, k, v = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+               for x in flash_inputs(b, h, hkv, sq, sk, hd))
+    out = flash_attention_cuda(*(x.transpose(1, 2) for x in (q, k, v)), window=window,
+                               bidirectional=bidir).transpose(1, 2)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), window=window,
+                              bidirectional=bidir).to(torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES, ids=str)
+def test_paged_kernel_at_split_boundaries(case):
+    _card()
+    s, hkv, g, hd, page, n, window, lengths = case
+    q, kp, vp, table, lens = (torch.from_numpy(x).cuda()
+                              for x in paged_inputs(s, hkv, g, hd, page, n, lengths=lengths))
+    assert split_plan(n)[0] > 1  # the case does split the slot's pages
+    out = paged_attention(q, kp, vp, table, lens, window)
+    ref = paged_attention_ref(q, kp, vp, table, lens, window)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=2e-5)
+    # empty slots: exact zeros from the kernel itself, before ops masks them
+    raw = paged_attention_cuda(q, kp, vp, table, lens, window=max(window, 0))
+    assert not raw[lens == 0].any()
 
 
 @pytest.mark.cuda
