@@ -9,7 +9,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
   2. build    — one nvcc per kernel source, all started together: the
                 delta-pipeline kernels (K1, K2, K3, K4), K5, K6 and K7
                 (seconds, and the -Xptxas -v register / shared-memory
-                report);
+                report; the three instantiations of the streaming
+                fedavg_kernel of K1, K3 and K4 on a line each, and no
+                spills in any);
   3. kernels  — K1 (fedavg_apply) held against its plain version at the
                 JAX package's FEDAVG_CASES shapes, the simulator's cohort
                 (64, 112,766) in float32 and bf16 and kernels_bench's
@@ -20,10 +22,23 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 small ragged shape, over six gate sets; K4
                 (delta_pipeline_partial) likewise at (C_local, P) = (16,
                 112,766), (64, 112,766) and a ragged (16, 1,000), gates none /
-                clip (with K2) / int8 / top-k; then K2, K3 and K4 timed at the
+                clip (with K2) / int8 / top-k; the streaming fedavg_kernel
+                with every gate off bit for bit equal (torch.equal) to its
+                plain version for K3, K4 and K1 in float32 at EXACT_CASES
+                (the slice, a fog's block, contiguous views one or three
+                elements past a 16-byte boundary, P = 112,767, C = 1, C =
+                4,096 at P = 130), and K1 in bf16 at D = 4,999 (aligned and
+                misaligned) and at the cohort to the JAX tests' tolerance
+                and equal to its own arithmetic (k1_exact);
+                then K2, K3 and K4 timed at the
                 main path's shapes beside the plain version, the byte bound
-                and one PyTorch library call, and K1 likewise at (64,
-                112,766) and (32, 65,536) float32; K5 (flash_attention_fwd) held
+                and one PyTorch library call, K1 likewise at (64,
+                112,766) and (32, 65,536) float32 and at (64, 112,766) in
+                bf16 (beside torch.addmv in bf16), K3's median and
+                trimmed-mean route once at the slice, and the streaming
+                kernel's plan (blocks, columns per block, rows per stage,
+                stages, bytes in flight per SM) printed at each timed
+                shape; K5 (flash_attention_fwd) held
                 against its plain version at the serving prefill's shape
                 (B=1, H=32, Hkv=8, S=128, hd=64, bf16) and at edge shapes
                 (window, bidirectional, GQA 8, 4 and 1, Sq < Sk, ragged and
@@ -301,6 +316,132 @@ def check_fedavg(torch, fa, dev):
     return worst
 
 
+# The streaming fedavg_kernel (K3's weighted sum, K4, K1) with every gate
+# off equals its plain version bit for bit: clients in order, one FMA each
+# (ref.py's _fma rounds once), one rounding of the apply. (name, C, P,
+# elements from a 16-byte boundary to the buffer's first element): the
+# slice, a fog's block, a contiguous view one element past a boundary (so
+# every row and both ends of the tensor are misaligned), a ragged P, one
+# client, and 4,096 clients at a small P.
+EXACT_CASES = [
+    ("slice", 64, 112_766, 0),
+    ("fog block", 16, 112_766, 0),
+    ("view one element past 16 bytes", 64, 112_766, 1),
+    ("P 112,767", 64, 112_767, 0),
+    ("P 112,767, view +3", 16, 112_767, 3),
+    ("C 1", 1, 112_766, 0),
+    ("C 4,096, P 130", 4096, 130, 0),
+    ("C 4,096, P 130, view +1", 4096, 130, 1),
+]
+# K1 in bf16 (N, D, offset): an odd D, so each row starts 2 bytes further
+# from a boundary than the one before, aligned and one element past.
+K1_BF16_CASES = [(64, 4_999, 0), (64, 4_999, 1), (64, 112_766, 0)]
+
+
+def offset_view(torch, c, p, offset, dtype, gen, dev, scale=1.0):
+    """A contiguous (c, p) view whose first element lies ``offset``
+    elements past the start of its (256-byte-aligned) allocation."""
+    flat = (scale * torch.randn((c * p + offset,), generator=gen, device=dev)).to(dtype)
+    x = flat[offset:].view(c, p)
+    check(x.is_contiguous() and x.data_ptr() - flat.data_ptr() == offset * x.element_size(),
+          "offset view")
+    return x
+
+
+def k1_exact(torch, dp, fa_cuda, upd, base, mask, w, lr):
+    """K1's function in its own arithmetic: Σ over clients in order of
+    one FMA each with the wrapper's weight row, then base + sum rounded
+    once to float32 and once to the dtype."""
+    agg = dp.delta_pipeline_partial_ref(upd.float(), fa_cuda.weight_row(mask, w, lr))
+    return (agg + base.float()).to(base.dtype)
+
+
+def check_streaming_exact(torch, dp, fa, dev):
+    """The torch.equal checks of K3 (fedavg gate set), K4 (no gate) and K1
+    (float32) at EXACT_CASES; K1 in bf16 at K1_BF16_CASES to the JAX
+    tests' tolerance against its plain version and equal to k1_exact."""
+    from repro_torch.kernels.fedavg import fedavg as fa_cuda
+
+    gen = torch.Generator(device=dev)
+    for i, (name, c, p, offset) in enumerate(EXACT_CASES):
+        gen.manual_seed(900 + i)
+        upd = offset_view(torch, c, p, offset, torch.float32, gen, dev, scale=0.05)
+        base = torch.randn((p,), generator=gen, device=dev)
+        mask = torch.rand((c,), generator=gen, device=dev) < 0.7
+        mask[0] = True
+        w = torch.rand((c,), generator=gen, device=dev) * 300 + 10
+        dm = mask.float() * w
+        k3 = dp.delta_pipeline_apply(upd, base, mask, w, lr=0.7)
+        k4 = dp.delta_pipeline_partial(upd, dm)
+        k1 = fa.fedavg_apply(upd, base, mask, w, lr=0.9)
+        eq = {"k3": torch.equal(k3, dp.delta_pipeline_ref(upd, base, mask, w, lr=0.7)),
+              "k4": torch.equal(k4, dp.delta_pipeline_partial_ref(upd, dm)),
+              "k1": torch.equal(k1, k1_exact(torch, dp, fa_cuda, upd, base, mask, w, 0.9))}
+        say("kernels", kernel="fedavg_kernel", case=repr(name), C=c, P=p,
+            offset_bytes=upd.data_ptr() % 16, **{f"{k}_equal": v for k, v in eq.items()})
+        for k, v in eq.items():
+            check(v, f"{k} not bitwise equal to its plain version at {name}")
+    for i, (n, d, offset) in enumerate(K1_BF16_CASES):
+        gen.manual_seed(950 + i)
+        upd = offset_view(torch, n, d, offset, torch.bfloat16, gen, dev)
+        base = torch.randn((d,), generator=gen, device=dev).to(torch.bfloat16)
+        mask = torch.rand((n,), generator=gen, device=dev) < 0.7
+        w = torch.randn((n,), generator=gen, device=dev).abs() * 100
+        out = fa.fedavg_apply(upd, base, mask, w, lr=0.9)
+        ref = fa.fedavg_apply_ref(upd, base, mask, w, lr=0.9)
+        err = float((out.float() - ref.float()).abs().max())
+        same = torch.equal(out, k1_exact(torch, dp, fa_cuda, upd, base, mask, w, 0.9))
+        say("kernels", kernel="fedavg_apply", dtype="bfloat16", N=n, D=d,
+            offset_bytes=upd.data_ptr() % 16, max_abs_err=err, atol=K1_ATOL["bfloat16"],
+            equal_to_own_arithmetic=same)
+        check(out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all()),
+              f"fedavg_apply bf16 {n}x{d}+{offset}")
+        check(err <= K1_ATOL["bfloat16"], f"fedavg_apply bf16 {n}x{d}+{offset}: {err}")
+        check(same, f"fedavg_apply bf16 {n}x{d}+{offset}: not its own arithmetic")
+
+
+def fedavg_plan_line(torch, dp, name, c, p, dtype):
+    """Print the streaming kernel's plan at a main-path shape: blocks (one
+    per SM), columns per block, tile, rows per stage, stages, shared bytes,
+    and the bytes a block has requested once its ring is first filled."""
+    cu = dp.delta_pipeline
+    eb = torch.empty((), dtype=dtype).element_size()
+    n_sms = cu.sm_count(torch.cuda.current_device())
+    pl = cu.fedavg_plan(c, p, eb, n_sms)
+    tiles = -(-pl.cols_per_block // pl.tile_cols)
+    first_fill = min(pl.stages * pl.rows_per_stage, c * tiles) * pl.tile_cols * eb
+    say("plan", kernel=name, C=c, P=p, dtype=str(dtype).split(".")[-1], sms=n_sms,
+        blocks=pl.blocks, cols_per_block=pl.cols_per_block, tile_cols=pl.tile_cols,
+        rows_per_stage=pl.rows_per_stage, stages=pl.stages, smem_bytes=pl.smem_bytes,
+        ring_bytes=pl.ring_bytes, bytes_in_flight_per_sm=first_fill)
+
+
+def fedavg_ptxas(log_text: str) -> list[dict]:
+    """fedavg_kernel's instantiations in an `-Xptxas -v` report: name,
+    registers, stack, spill stores and loads."""
+    import re
+
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = None
+            if "fedavg_kernel" in ln:
+                mangled = ln.split("'")[1]
+                kind = ("<true, float> (K4)" if "ILb1E" in mangled else
+                        "<false, bf16> (K1)" if "bfloat16" in mangled else
+                        "<false, float> (K3, K1)")
+                cur = {"kernel": f"fedavg_kernel{kind}"}
+                out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def phase_kernels(torch, dp):
     """Phase 3: kernel vs plain version, then timing. Returns per-kernel
     dicts for the JSON line (launches filled in by the slice phase)."""
@@ -355,6 +496,7 @@ def phase_kernels(torch, dp):
                 all_inf=bool(torch.isinf(out).all()))
 
     errs["delta_pipeline_partial"] = check_partial(torch, dp, dev)
+    check_streaming_exact(torch, dp, fa, dev)
 
     # ---- timing at the slice's shape (the main path's gates: plain Eq. 6)
     from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
@@ -460,6 +602,36 @@ def phase_kernels(torch, dp):
                                                 bench_row, out=outb), 400),
     }
 
+    # K1 in bf16 at the cohort on eight 14.4 MB buffers (> L2), beside
+    # torch.addmv in bf16 (its weight row rounded to bf16).
+    bf_bufs = [(b["upd"].to(torch.bfloat16), b["base"].to(torch.bfloat16))
+               for b in bufs + [make_inputs(torch, c, segs, 20 + i, dev) for i in range(4)]]
+    bf_row = k1_rows[0]
+    bf_row16 = bf_row.to(torch.bfloat16)
+    outbf = torch.empty((p,), dtype=torch.bfloat16, device=dev)
+    t_bf = {
+        "k1": cuda_ms(lambda i: fa_cuda.launch_fedavg(*bf_bufs[i % 8], bf_row, outbf), 400),
+        "k1_plain": cuda_ms(lambda i: fa.fedavg_apply_ref(
+            *bf_bufs[i % 8], bufs[0]["mask"], bufs[0]["weights"]), 100),
+        "k1_lib": cuda_ms(lambda i: torch.addmv(bf_bufs[i % 8][1], bf_bufs[i % 8][0].t(),
+                                                bf_row16, out=outbf), 400),
+    }
+    # K3's median / trimmed route (robust_kernel), once at the slice.
+    t_robust = {}
+    for agg in ("median", "trimmed"):
+        r_rows = [cu.pipeline_rows(b["upd"], b["mask"], b["weights"], None, 0.0, 0.1,
+                                   clip_norm=0.0, compression="none", topk_fraction=0.05,
+                                   seg_sizes=None, aggregator=agg) for b in bufs]
+
+        def k3_robust(i, agg=agg, r_rows=r_rows):
+            b, (wn, cnt, pre, seg, tab) = bufs[i % 4], r_rows[i % 4]
+            cu.launch_pipeline(b["upd"], b["base"], wn, cnt, pre, seg, tab, None, None,
+                               out, None, lr=lr, server_momentum=0.9,
+                               compression="none", aggregator=agg,
+                               server_optimizer="fedavg")
+
+        t_robust[agg] = cuda_ms(k3_robust, 20)
+
     t = {
         "k1": cuda_ms(k1, 200), "k1_plain": cuda_ms(k1_plain, 100),
         "k1_lib": cuda_ms(k1_lib, 200),
@@ -497,6 +669,20 @@ def phase_kernels(torch, dp):
         dtype="float32", ms=t_bench["k1"], plain_ms=t_bench["k1_plain"],
         library_ms=t_bench["k1_lib"], library="torch.addmv", bound_ms=bound1b,
         bytes=k1b_bytes, share_of_bound=bound1b / t_bench["k1"])
+    k1bf_bytes = 2 * (c * p + p + p) + 4 * c
+    bound1bf = max(k1bf_bytes / HBM_BYTES_PER_S, 2 * (c * p + p) / FP32_FLOP_PER_S) * 1e3
+    say("timing", kernel="fedavg_apply", N=c, D=p, dtype="bfloat16", ms=t_bf["k1"],
+        plain_ms=t_bf["k1_plain"], library_ms=t_bf["k1_lib"],
+        library="torch.addmv (bf16)", bound_ms=bound1bf, bytes=k1bf_bytes,
+        share_of_bound=bound1bf / t_bf["k1"])
+    for agg, ms in t_robust.items():
+        say("timing", kernel="delta_pipeline_apply", route="robust_kernel", aggregator=agg,
+            C=c, P=p, ms=ms, bound_ms=bound3, share_of_bound=bound3 / ms)
+    for name, cc, pp, dt in (("delta_pipeline_apply", c, p, torch.float32),
+                             ("delta_pipeline_partial", cl, p, torch.float32),
+                             ("fedavg_apply", c, p, torch.bfloat16),
+                             ("fedavg_apply", nb, db, torch.float32)):
+        fedavg_plan_line(torch, dp, name, cc, pp, dt)
     say("timing", kernel="delta_sq_norms", C=c, P=p, ms=t["k2"],
         plain_ms=t["k2_plain"], library_ms=t["k2_lib"],
         library="torch.linalg.vecdot", bound_ms=bound2, bytes=k2_bytes,
@@ -512,7 +698,8 @@ def phase_kernels(torch, dp):
          "on_main_path": False, "max_abs_err": errs["fedavg_apply"], "ms": t["k1"],
          "plain_ms": t["k1_plain"], "bound_ms": bound1,
          "bound_by": "bytes" if by1[0] >= by1[1] else "operations",
-         "library_ms": t["k1_lib"]},
+         "library_ms": t["k1_lib"], "bf16_ms": t_bf["k1"], "bf16_plain_ms": t_bf["k1_plain"],
+         "bf16_bound_ms": bound1bf, "bf16_library_ms": t_bf["k1_lib"]},
         {"name": "delta_sq_norms", "route": "cuda", "source": src,
          "replaces": f"{pallas}:80", "launches": None, "on_main_path": False,
          "max_abs_err": errs["delta_sq_norms"], "ms": t["k2"],
@@ -522,7 +709,8 @@ def phase_kernels(torch, dp):
          "replaces": f"{pallas}:436", "launches": None, "on_main_path": True,
          "max_abs_err": errs["delta_pipeline_apply"], "ms": t["k3"],
          "plain_ms": t["k3_plain"], "bound_ms": bound3, "bound_by": bound_by3,
-         "library_ms": t["k3_lib"]},
+         "library_ms": t["k3_lib"], "median_ms": t_robust["median"],
+         "trimmed_ms": t_robust["trimmed"]},
         {"name": "delta_pipeline_partial", "route": "cuda", "source": src,
          "replaces": f"{pallas}:536", "launches": None, "on_main_path": True,
          "max_abs_err": errs["delta_pipeline_partial"], "ms": t["k4"],
@@ -1293,6 +1481,13 @@ def main() -> int:
         say("build", library=kl.path.name, seconds=kl.build_seconds)
         for ln in ptxas:
             print(f"[build] ptxas {ln}", flush=True)
+    # the streaming kernel's instantiations: registers, shared memory, spills
+    streaming = fedavg_ptxas(cu.library().log_path.read_text())
+    check(len(streaming) == 3, f"fedavg_kernel instantiations in ptxas: {streaming}")
+    for entry in streaming:
+        say("build", **entry)
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"{entry['kernel']} spills")
 
     # 3. kernels against their plain versions, then timing
     kernels = {k["name"]: k for k in phase_kernels(torch, dp)}

@@ -28,40 +28,96 @@
 //       gate off, lr = 1 and the element type T = the updates' dtype: K3's
 //       client order and FMAs, its apply as one FMA, a single rounding to T.
 //
-// What bounds them on an H100: device-memory bytes (K4 reads its C_local*P*4
-// bytes once and writes P*4). The pipeline reads the
-// C*P*4 bytes of the delta buffer once, plus 1-2 (P,) vectors (base, and
-// noise / momentum / segment ids when their gates are on), and writes one or
-// two (P,) vectors; it does ~2*C*P flops, far below the card's rate. The
-// design therefore only has to stream the buffer once with coalesced loads:
-// one thread owns 4 columns spaced a block apart, so a warp reads 32
-// neighbouring floats of each client row per load, and the client loop loads
-// 8 client rows ahead of their FMAs (32 loads in flight per thread). The sum
-// over clients runs in a fixed order with one FMA per client (no atomics), so
-// a run replays bitwise; the order and the FMA are those of XLA's CPU dot,
-// which the JAX package's reference uses. The ragged tail (P = 112,766 is no multiple of a tile) is
-// masked in the kernel, no padded copy is made.
+// What bounds them on an H100: device-memory bytes. The weighted sum reads
+// the C*P deltas once, plus one or two (P,) vectors, and writes one or two;
+// it does 2 flops per delta, far below the card's rate. At the main path's
+// (64, 112,766) float32 that is 29.8 MB, 8.9 us at 3.35 TB/s, so the kernel
+// has to keep enough bytes in flight on every SM from its first row to its
+// last, and give every SM the same share.
 //
-// What a later change would do about the bound: read the rows with 16-byte
-// vector loads (rows are only 8-byte aligned when P % 4 == 2, so this needs a
-// per-row alignment prologue), stage client tiles through shared memory with
-// TMA so more bytes are in flight per SM, and split K2's rows over several
-// blocks (it runs one block per client, 64 blocks on 132 SMs). The median /
-// trimmed path sorts each column in a thread-local array (insertion sort over
-// the selected clients, C <= 256), which spills to local memory; a
-// warp-cooperative sorting network would keep it in registers.
+// `fedavg_kernel` is a streaming kernel:
+//   * A balanced, persistent grid. The host's plan (`fedavg_plan` in
+//     delta_pipeline.py, passed in as integers) launches one block per SM
+//     (two per SM, each with half the shared memory, were slower) and each
+//     block owns one contiguous range of columns. Ranges start and end on
+//     16-byte granules (4 float32 or 8 bf16 columns) and differ by at most
+//     one granule, so every SM streams the same bytes (213 or 214 granules
+//     each at P = 112,766 on 132 SMs). A range wider than a tile (256
+//     consumer threads x 4 columns) is walked tile by tile.
+//   * A ring of stages in dynamic shared memory, filled by the Tensor Memory
+//     Accelerator. A producer warp starts one 1-D bulk copy (cp.async.bulk
+//     ... mbarrier::complete_tx) per client row and stage, a lane per row (a
+//     single issuing thread, working out each row's span in turn, was slower
+//     than the copies it started); a "full" mbarrier per stage counts the
+//     bytes, an "empty" mbarrier per stage counts the 8 consumer warps that
+//     have read it before the producer refills it. The producer starts at
+//     once; the consumers stage the weight and clip rows meanwhile. At the
+//     slice a stage holds 8 rows of a block's range and
+//     the ring all 8 stages: every byte a block reads is requested at its
+//     start (~219 KB in flight per SM instead of 16-32 KB in 8 serialised
+//     trips). Every wait is try_wait.parity in a loop with an iteration cap
+//     that traps, so a fault in the ring's phases ends the run with an error.
+//   * Alignment with no byte read outside the tensor. A bulk copy needs
+//     16-byte-aligned addresses and sizes, and a row starts at base + r*P*eb,
+//     which is 8 mod 16 for every odd row at P = 112,766. Each (row, tile)
+//     copy is widened to the 16-byte granules around it (the extra bytes are
+//     the neighbouring columns of the same row) and lands at the same offset
+//     mod 16 in shared memory, so a consumer reads row r at its own shift
+//     (A_r mod 16) / eb. Only at the tensor's two ends would widening leave
+//     the tensor: there the copy is clipped to the tensor's aligned interior
+//     and the producer loads the (< 16-byte) fragment with ordinary loads
+//     before it arrives on the stage's barrier.
+//   * Few instructions per element. With the bytes in flight, what is left
+//     is the consumers' instruction rate: 8 warps per SM read every
+//     element from shared memory. They test the gates once per stage, not
+//     per element, so with every gate off the inner loop is one
+//     shared-memory load and one FMA per element, and a row's shift steps
+//     by (P * eb) mod 16 from the row before. (Testing the gates per
+//     element, as `transform` does, made the whole kernel ~1.6x slower at
+//     the slice than this loop.)
+//   * The arithmetic is the plain version's: each column's sum stays in one
+//     consumer thread, clients run in order 0..C-1 with one fmaf(w,
+//     transform(x), acc) each, no atomics, no split over clients; with every
+//     gate off K1 (float32), K3 and K4 equal `ref.py` (whose _fma rounds
+//     once) bit for bit. The epilogue runs per 16-byte granule of the output
+//     from a shared-memory copy of the tile's sums, with 16-byte loads of
+//     the base and 16-byte stores of the output (and new_mu) where the
+//     pointers allow, scalar ones at the edges.
+// The order and the FMA are those of XLA's CPU dot, which the JAX package's
+// reference uses, so a run replays bitwise.
+//
+// Not changed by the streaming design: `sq_norms_kernel` (K2, one block per
+// client, 64 blocks on 132 SMs; splitting rows over blocks would fill the
+// card) and `robust_kernel` (median / trimmed mean, one thread per column,
+// an insertion sort in a thread-local array over the selected clients, C <=
+// 256, which spills to local memory; a warp-cooperative sorting network
+// would keep it in registers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kNormThreads = 1024;
 constexpr int kNormUnroll = 8;
-constexpr int kThreads = 128;
-constexpr int kCols = 4;
-constexpr int kBatch = 8;  // client rows loaded ahead of their FMAs
+constexpr int kThreads = 128;  // robust_kernel
+constexpr int kCols = 4;       // robust_kernel
+
+// fedavg_kernel: one producer warp and kConsumers consumer threads, each
+// owning kColsPerThread columns of a tile spaced kConsumers apart. The
+// shared-memory layout (kept equal to delta_pipeline.py's `ring_offset`):
+// [full | empty mbarriers, kMaxStages each][wn (C,)][pre (C,)][tile sums]
+// [ring: stages x rows x row_stride], row_stride = tile_cols * eb + 16.
+constexpr int kConsumers = 256;
+constexpr int kColsPerThread = 4;
+constexpr int kMaxTileCols = kConsumers * kColsPerThread;
+constexpr int kFedThreads = kConsumers + 32;
+constexpr int kMaxStages = 32;
+constexpr int kBarBytes = 16 * kMaxStages;
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
+constexpr long long kSpinCap = 1LL << 24;
 
 enum Compression { kNone = 0, kInt8 = 1, kTopk = 2 };
 enum Aggregator { kFedavg = 0, kMedian = 1, kTrimmed = 2 };
@@ -74,9 +130,15 @@ __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
 }
 
 template <typename T>
@@ -101,6 +163,25 @@ struct Args {
   int optimizer;
 };
 using PipelineArgs = Args<float>;
+
+// fedavg_kernel's plan from the host (`fedavg_plan`): columns per tile,
+// client rows per stage, stages in the ring. The grid is the plan's block
+// count; the dynamic shared bytes its smem_bytes.
+struct Plan {
+  int tile_cols;
+  int rows;
+  int stages;
+};
+
+__host__ __device__ inline long long align_up(long long x, long long a) {
+  return (x + a - 1) / a * a;
+}
+__host__ __device__ inline long long acc_offset(int C) {
+  return align_up(kBarBytes + 8LL * C, 16);
+}
+__host__ __device__ inline long long ring_offset(int C, int tile_cols) {
+  return align_up(acc_offset(C) + 4LL * tile_cols, 128);
+}
 
 __global__ void __launch_bounds__(kNormThreads)
 sq_norms_kernel(const float* __restrict__ upd, float* __restrict__ out,
@@ -151,25 +232,32 @@ __device__ __forceinline__ float transform(float x, int c, int sg,
   return x;
 }
 
-// + DP noise, server momentum, apply. The plain path is one FMA like the
-// reference's fused `base + lr * agg`; the momentum paths round each op
-// separately, as the plain PyTorch version does.
+// + DP noise, server momentum, apply, for column p with base value `base`;
+// returns the output and sets mu2 (the new momentum) when a.mu is given. The
+// plain path is one FMA like the reference's fused `base + lr * agg`; the
+// momentum paths round each op separately, as the plain PyTorch version does.
 template <typename T>
-__device__ __forceinline__ void epilogue(float agg, long long p,
-                                         const Args<T>& a) {
+__device__ __forceinline__ float finish(float agg, float base, long long p,
+                                        const Args<T>& a, float& mu2) {
   if (a.noise != nullptr) agg = __fadd_rn(agg, __ldg(a.noise + p));
-  const float base = load_f(a.base + p);
   if (a.mu != nullptr) {
-    const float mu2 = __fadd_rn(__fmul_rn(a.server_momentum, __ldg(a.mu + p)), agg);
-    a.new_mu[p] = mu2;
+    mu2 = __fadd_rn(__fmul_rn(a.server_momentum, __ldg(a.mu + p)), agg);
     float step = __fmul_rn(a.lr, mu2);
     if (a.optimizer == kFedadam) {
       step = __fdiv_rn(step, __fadd_rn(sqrtf(__fmul_rn(agg, agg)), 1e-3f));
     }
-    store_f(a.out + p, __fadd_rn(base, step));
-  } else {
-    store_f(a.out + p, fmaf(a.lr, agg, base));
+    return __fadd_rn(base, step);
   }
+  return fmaf(a.lr, agg, base);
+}
+
+template <typename T>
+__device__ __forceinline__ void epilogue(float agg, long long p,
+                                         const Args<T>& a) {
+  float mu2 = 0.f;
+  const float o = finish(agg, load_f(a.base + p), p, a, mu2);
+  if (a.mu != nullptr) a.new_mu[p] = mu2;
+  a.out[p] = from_f<T>(o);
 }
 
 template <typename T>
@@ -182,61 +270,368 @@ __device__ __forceinline__ void stage_rows(const Args<T>& a, float* s_wn,
   __syncthreads();
 }
 
-// kPartial: write the raw weighted sum (K4) instead of running the epilogue.
-// T: the element type of the deltas, the base and the output.
-template <bool kPartial, typename T = float>
-__global__ void __launch_bounds__(kThreads) fedavg_kernel(Args<T> a) {
-  extern __shared__ float smem[];
-  float* s_wn = smem;
-  float* s_pre = smem + a.C;
-  stage_rows(a, s_wn, s_pre);
+// ---- mbarrier and bulk-copy primitives (PTX) ----------------------------- //
 
-  const long long p0 =
-      static_cast<long long>(blockIdx.x) * (kThreads * kCols) + threadIdx.x;
-  float acc[kCols];
-  int sg[kCols];
-  bool ok[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    const long long p = p0 + j * kThreads;
-    ok[j] = p < a.P;
-    acc[j] = 0.f;
-    sg[j] = (ok[j] && a.seg != nullptr) ? __ldg(a.seg + p) : 0;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed; traps after
+// kSpinCap polls (a legitimate wait is one memory round trip).
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == kSpinCap) __trap();
   }
-  // kBatch client rows are loaded before any of their FMAs, so a thread
-  // keeps kBatch * kCols loads in flight; the FMAs still run in client
-  // order.
-  for (int c0 = 0; c0 < a.C; c0 += kBatch) {
-    float x[kBatch][kCols];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int c = c0 + b;
-      const T* row = a.upd + static_cast<long long>(c) * a.P + p0;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        x[b][j] = (c < a.C && ok[j]) ? load_f(row + j * kThreads) : 0.f;
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, unsigned long long src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// The bytes of one client row's tile, [A, E), and the part a bulk copy
+// reads: [a0, a1) is [A, E) widened to 16-byte granules, [lo, hi) that span
+// clipped to the tensor's aligned interior [in0, in1).
+struct Span {
+  unsigned long long A, E, a0, lo, hi;
+};
+
+__device__ __forceinline__ Span row_span(unsigned long long A, unsigned long long E,
+                                         unsigned long long in0,
+                                         unsigned long long in1) {
+  Span s;
+  s.A = A;
+  s.E = E;
+  s.a0 = A & ~15ull;
+  s.lo = s.a0 > in0 ? s.a0 : in0;
+  const unsigned long long a1 = (E + 15) & ~15ull;
+  s.hi = a1 < in1 ? a1 : in1;
+  return s;
+}
+
+// Elements of [A, E) outside [lo, hi), which only the tensor's partial
+// first or last granule has: loaded with ordinary loads into their place.
+template <typename T>
+__device__ __forceinline__ void load_fragments(const Span& s, unsigned char* drow) {
+  const unsigned long long head_end = s.lo < s.E ? (s.lo > s.A ? s.lo : s.A) : s.E;
+  const unsigned long long tail_start = s.hi > head_end ? s.hi : head_end;
+  for (unsigned long long e = s.A; e < head_end; e += sizeof(T)) {
+    *reinterpret_cast<T*>(drow + (e - s.a0)) = *reinterpret_cast<const T*>(e);
+  }
+  for (unsigned long long e = tail_start; e < s.E; e += sizeof(T)) {
+    *reinterpret_cast<T*>(drow + (e - s.a0)) = *reinterpret_cast<const T*>(e);
+  }
+  // Order these generic-proxy writes before later bulk copies into the
+  // same bytes; the stage's arrive releases them to the consumers.
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The producer warp: for every tile of the block's range and every stage
+// of R client rows, wait for the ring slot to be empty; each lane takes
+// rows lane, lane + 32, ... of the stage, loads its tensor-end fragments
+// (if any), and the stage's bytes are summed over the warp; lane 0 arrives
+// on the slot's full barrier with that count, then each lane starts one
+// bulk copy per row.
+template <typename T>
+__device__ void produce(const Args<T>& a, const Plan& pl, long long lo, long long hi,
+                        uint64_t* bars, unsigned char* ring, int row_stride) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long T0 = reinterpret_cast<unsigned long long>(a.upd);
+  const unsigned long long row_bytes = static_cast<unsigned long long>(a.P) * sizeof(T);
+  const unsigned long long in0 = (T0 + 15) & ~15ull;
+  const unsigned long long in1 = (T0 + a.C * row_bytes) & ~15ull;
+  const int stage_bytes = pl.rows * row_stride;
+  int stage = 0;
+  for (long long t0 = lo; t0 < hi; t0 += pl.tile_cols) {
+    const long long t1 = t0 + pl.tile_cols < hi ? t0 + pl.tile_cols : hi;
+    const unsigned long long width = static_cast<unsigned long long>(t1 - t0) * sizeof(T);
+    for (int r0 = 0; r0 < a.C; r0 += pl.rows, ++stage) {
+      const int slot = stage % pl.stages;
+      if (stage >= pl.stages) {
+        bar_wait(smem_u32(bars + kMaxStages + slot), ((stage / pl.stages) - 1) & 1);
       }
-    }
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int c = c0 + b;
-      if (c < a.C) {
-        const float w = s_wn[c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          acc[j] = fmaf(w, transform(x[b][j], c, sg[j], a, s_pre), acc[j]);
+      unsigned char* sbase = ring + slot * stage_bytes;
+      const int nrows = min(pl.rows, a.C - r0);
+      const unsigned long long first =
+          T0 + static_cast<unsigned long long>(r0) * row_bytes + t0 * sizeof(T);
+      uint32_t bytes = 0;
+      for (int rr = lane; rr < nrows; rr += 32) {
+        const unsigned long long A = first + rr * row_bytes;
+        const Span s = row_span(A, A + width, in0, in1);
+        if (s.hi > s.lo) bytes += static_cast<uint32_t>(s.hi - s.lo);
+        if (s.lo > s.A || s.hi < s.E) load_fragments<T>(s, sbase + rr * row_stride);
+      }
+      bytes = __reduce_add_sync(0xffffffffu, bytes);
+      __syncwarp();  // the lanes' fragment stores before lane 0's release
+      const uint32_t full = smem_u32(bars + slot);
+      if (lane == 0) bar_arrive_expect_tx(full, bytes);
+      __syncwarp();
+      for (int rr = lane; rr < nrows; rr += 32) {
+        const unsigned long long A = first + rr * row_bytes;
+        const Span s = row_span(A, A + width, in0, in1);
+        if (s.hi > s.lo) {
+          bulk_copy(smem_u32(sbase + rr * row_stride + (s.lo - s.a0)), s.lo,
+                    static_cast<uint32_t>(s.hi - s.lo), full);
         }
       }
     }
   }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16 bytes of T as floats, and back (bf16: the high half of a float's bits,
+// rounded to nearest even on the way back, as __float2bfloat16 does).
+__device__ __forceinline__ void unpack(uint4 u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(uint4 u, float (&x)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    if (!ok[j]) continue;
-    if constexpr (kPartial) {
-      store_f(a.out + p0 + j * kThreads, acc[j]);
-    } else {
-      epilogue(acc[j], p0 + j * kThreads, a);
+  for (int q = 0; q < 4; ++q) {
+    x[2 * q] = __uint_as_float(w[q] << 16);
+    x[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&x)[4]) {
+  return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]), __float_as_uint(x[2]),
+                    __float_as_uint(x[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&x)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w[q] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(x[2 * q]))) |
+           (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(x[2 * q + 1])))
+            << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The epilogue of one 16-byte granule of the output, columns [p0, p0 + n),
+// from the tile's sums `sa` in shared memory; `base16` holds the granule's
+// base when `have_base` (a 16-byte load made ahead).
+template <bool kPartial, typename T>
+__device__ __forceinline__ void finish_granule(const Args<T>& a, const float* sa,
+                                               long long p0, int n, uint4 base16,
+                                               bool have_base) {
+  constexpr int kG = 16 / sizeof(T);
+  const bool whole = n == kG;
+  float v[kG];
+#pragma unroll
+  for (int q = 0; q < kG / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(sa)[q];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+  float o[kG], m2[kG], b[kG];
+  unpack(base16, b);
+#pragma unroll
+  for (int e = 0; e < kG; ++e) {
+    m2[e] = 0.f;
+    o[e] = v[e];
+    if (!kPartial && e < n) {
+      const float base = have_base ? b[e] : load_f(a.base + p0 + e);
+      o[e] = finish(v[e], base, p0 + e, a, m2[e]);
     }
+  }
+  if (whole && aligned16(a.out + p0)) {
+    *reinterpret_cast<uint4*>(a.out + p0) = pack(o);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kG; ++e) {
+      if (e < n) a.out[p0 + e] = from_f<T>(o[e]);
+    }
+  }
+  if (!kPartial && a.new_mu != nullptr) {
+    if (whole && aligned16(a.new_mu + p0)) {
+#pragma unroll
+      for (int q = 0; q < kG / 4; ++q) {
+        reinterpret_cast<float4*>(a.new_mu + p0)[q] =
+            make_float4(m2[4 * q], m2[4 * q + 1], m2[4 * q + 2], m2[4 * q + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kG; ++e) {
+        if (e < n) a.new_mu[p0 + e] = m2[e];
+      }
+    }
+  }
+}
+
+// One ring stage through the consumers: rows r0 .. r0 + nrows - 1 in order,
+// one FMA each per owned column. Row r0's bytes start `shift` bytes into its
+// buffer (its address mod 16) and each next row `step` bytes further, mod
+// 16. kGated: the clip / compression transform (when either gate is on);
+// without it the loop is a shared-memory load and an FMA per element.
+template <bool kGated, typename T>
+__device__ __forceinline__ void consume_stage(const Args<T>& a, const unsigned char* sbase,
+                                              int row_stride, int r0, int nrows,
+                                              unsigned shift, unsigned step, int t,
+                                              const float* s_wn, const float* s_pre,
+                                              const bool (&ok)[kColsPerThread],
+                                              const int (&sg)[kColsPerThread],
+                                              float (&acc)[kColsPerThread]) {
+#pragma unroll 4
+  for (int rr = 0; rr < nrows; ++rr) {
+    const int c = r0 + rr;
+    const T* srow = reinterpret_cast<const T*>(sbase + rr * row_stride + shift) + t;
+    const float w = s_wn[c];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      if (ok[j]) {
+        float x = to_f(srow[j * kConsumers]);
+        if constexpr (kGated) x = transform(x, c, sg[j], a, s_pre);
+        acc[j] = fmaf(w, x, acc[j]);
+      }
+    }
+    shift = (shift + step) & 15u;
+  }
+}
+
+// kPartial: write the raw weighted sum (K4) instead of running the epilogue.
+// T: the element type of the deltas, the base and the output.
+template <bool kPartial, typename T>
+__global__ void __launch_bounds__(kFedThreads) fedavg_kernel(Args<T> a, Plan pl) {
+  constexpr int kG = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char fed_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fed_smem);
+  float* s_wn = reinterpret_cast<float*>(fed_smem + kBarBytes);
+  float* s_pre = s_wn + a.C;
+  float* s_acc = reinterpret_cast<float*>(fed_smem + acc_offset(a.C));
+  unsigned char* ring = fed_smem + ring_offset(a.C, pl.tile_cols);
+  const int row_stride = pl.tile_cols * static_cast<int>(sizeof(T)) + 16;
+
+  // The block's range [lo, hi): granules split as evenly as they go.
+  const long long granules = (a.P + kG - 1) / kG;
+  const long long nb = gridDim.x, b = blockIdx.x;
+  const long long per = granules / nb, extra = granules % nb;
+  const long long g_lo = b * per + (b < extra ? b : extra);
+  const long long lo = g_lo * kG;
+  const long long hi_g = (g_lo + per + (b < extra ? 1 : 0)) * kG;
+  const long long hi = hi_g < a.P ? hi_g : a.P;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pl.stages; ++s) {
+      bar_init(smem_u32(bars + s), 1);
+      bar_init(smem_u32(bars + kMaxStages + s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // Warp 0 starts the copies at once; the consumers stage the weight and
+  // clip rows meanwhile.
+  if (threadIdx.x < 32) {
+    produce<T>(a, pl, lo, hi, bars, ring, row_stride);
+    return;
+  }
+  const int t = threadIdx.x - 32;
+  for (int c = t; c < a.C; c += kConsumers) {
+    s_wn[c] = a.wn[c];
+    if (a.pre != nullptr) s_pre[c] = a.pre[c];
+  }
+  consumers_sync();
+
+  const int lane = threadIdx.x & 31;
+  const unsigned base_lo = static_cast<unsigned>(reinterpret_cast<uintptr_t>(a.upd));
+  const unsigned step = static_cast<unsigned>(a.P * static_cast<long long>(sizeof(T))) & 15u;
+  const bool gated = a.pre != nullptr || a.compression != kNone;
+  const int stage_bytes = pl.rows * row_stride;
+  int stage = 0;
+  for (long long t0 = lo; t0 < hi; t0 += pl.tile_cols) {
+    const long long t1 = t0 + pl.tile_cols < hi ? t0 + pl.tile_cols : hi;
+    const int n_gran = static_cast<int>((t1 - t0 + kG - 1) / kG);
+    // The base of this thread's first output granule, loaded ahead.
+    uint4 base16 = make_uint4(0u, 0u, 0u, 0u);
+    const long long pb = t0 + static_cast<long long>(t) * kG;
+    const bool have_base = !kPartial && t < n_gran && pb + kG <= t1 &&
+                           aligned16(a.base + pb);
+    if (have_base) base16 = __ldg(reinterpret_cast<const uint4*>(a.base + pb));
+    float acc[kColsPerThread];
+    int sg[kColsPerThread];
+    bool ok[kColsPerThread];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      const long long p = t0 + t + j * kConsumers;
+      ok[j] = p < t1;
+      acc[j] = 0.f;
+      sg[j] = (ok[j] && a.seg != nullptr) ? __ldg(a.seg + p) : 0;
+    }
+    for (int r0 = 0; r0 < a.C; r0 += pl.rows, ++stage) {
+      const int slot = stage % pl.stages;
+      bar_wait(smem_u32(bars + slot), (stage / pl.stages) & 1);
+      const unsigned char* sbase = ring + slot * stage_bytes;
+      const int nrows = min(pl.rows, a.C - r0);
+      // Row r0's shift in its buffer: its first column's address mod 16.
+      const unsigned shift =
+          (base_lo + (static_cast<unsigned>(r0) * static_cast<unsigned>(a.P) +
+                      static_cast<unsigned>(t0)) *
+                         static_cast<unsigned>(sizeof(T))) &
+          15u;
+      if (gated) {
+        consume_stage<true>(a, sbase, row_stride, r0, nrows, shift, step, t, s_wn, s_pre,
+                            ok, sg, acc);
+      } else {
+        consume_stage<false>(a, sbase, row_stride, r0, nrows, shift, step, t, s_wn, s_pre,
+                             ok, sg, acc);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(smem_u32(bars + kMaxStages + slot));
+    }
+    // The tile's sums go through shared memory so that each thread finishes
+    // one 16-byte granule of the output.
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      if (ok[j]) s_acc[t + j * kConsumers] = acc[j];
+    }
+    consumers_sync();
+    for (int gi = t; gi < n_gran; gi += kConsumers) {
+      const long long p0 = t0 + static_cast<long long>(gi) * kG;
+      const int n = static_cast<int>(t1 - p0 < kG ? t1 - p0 : kG);
+      finish_granule<kPartial, T>(a, s_acc + gi * kG, p0, n, base16,
+                                  have_base && gi == t);
+    }
+    if (t1 < hi) consumers_sync();  // before the next tile reuses s_acc
   }
 }
 
@@ -292,12 +687,48 @@ __global__ void __launch_bounds__(kThreads) robust_kernel(PipelineArgs a,
   }
 }
 
+// Checks the host's plan against the kernel's layout and launches
+// fedavg_kernel; 0, a cudaError_t, or -1 for a plan it does not take.
+template <bool kPartial, typename T>
+int launch_streaming(const Args<T>& a, int blocks, int tile_cols, int rows, int stages,
+                     int smem_bytes, cudaStream_t s) {
+  constexpr int kG = 16 / sizeof(T);
+  if (blocks <= 0 || tile_cols <= 0 || tile_cols > kMaxTileCols || tile_cols % kG != 0 ||
+      rows <= 0 || stages <= 0 || stages > kMaxStages) {
+    return -1;
+  }
+  const long long row_stride = static_cast<long long>(tile_cols) * sizeof(T) + 16;
+  const long long need = ring_offset(a.C, tile_cols) +
+                         static_cast<long long>(stages) * rows * row_stride;
+  if (smem_bytes < need || smem_bytes > kMaxSmem) return -1;
+  if (reinterpret_cast<uintptr_t>(a.upd) % sizeof(T) != 0) return -1;
+  // Allow the kernel the most shared memory a block may have, once per
+  // instantiation and device (the attribute is per device).
+  constexpr int kMaxDevices = 64;
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(fedavg_kernel<kPartial, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised[dev] = true;
+  }
+  fedavg_kernel<kPartial, T><<<blocks, kFedThreads, smem_bytes, s>>>(
+      a, Plan{tile_cols, rows, stages});
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns 0 on success, a cudaError_t after a refused launch, or -1 for
-// arguments the kernel does not take.
+// arguments the kernel does not take. The trailing plan arguments of the
+// weighted-sum entries (blocks, tile_cols, rows, stages, smem_bytes) come
+// from `fedavg_plan` in delta_pipeline.py.
 int fedfog_delta_sq_norms(const float* upd, float* out, int C, long long P,
                           void* stream) {
   if (C <= 0 || P <= 0) return -1;
@@ -311,20 +742,22 @@ int fedfog_delta_pipeline(const float* upd, const float* base, const float* wn,
                           const float* tab, const float* noise, const float* mu,
                           float* out, float* new_mu, int C, int L, long long P,
                           float lr, float server_momentum, int compression,
-                          int aggregator, int optimizer, void* stream) {
+                          int aggregator, int optimizer, int blocks, int tile_cols,
+                          int rows, int stages, int smem_bytes, void* stream) {
   if (C <= 0 || P <= 0 || C > 4096) return -1;
   if (compression != kNone && (seg == nullptr || tab == nullptr || L <= 0)) return -1;
   if (aggregator != kFedavg && (cnt == nullptr || C > 256)) return -1;
   if ((mu == nullptr) != (new_mu == nullptr)) return -1;
   PipelineArgs a{upd, base, wn, cnt, pre, seg, tab, noise, mu, out, new_mu,
                  P, C, L, lr, server_momentum, compression, optimizer};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aggregator == kFedavg) {
+    return launch_streaming<false, float>(a, blocks, tile_cols, rows, stages, smem_bytes, s);
+  }
   const long long per_block = static_cast<long long>(kThreads) * kCols;
   const dim3 grid(static_cast<unsigned>((P + per_block - 1) / per_block));
   const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(C);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (aggregator == kFedavg) {
-    fedavg_kernel<false><<<grid, kThreads, shmem, s>>>(a);
-  } else if (C <= 64) {
+  if (C <= 64) {
     robust_kernel<64><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
   } else {
     robust_kernel<256><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
@@ -336,43 +769,40 @@ int fedfog_delta_pipeline(const float* upd, const float* base, const float* wn,
 int fedfog_delta_pipeline_partial(const float* upd, const float* dm,
                                   const float* pre, const int* seg,
                                   const float* tab, float* out, int C, int L,
-                                  long long P, int compression, void* stream) {
+                                  long long P, int compression, int blocks,
+                                  int tile_cols, int rows, int stages,
+                                  int smem_bytes, void* stream) {
   if (C <= 0 || P <= 0 || C > 4096) return -1;
   if (compression != kNone && (seg == nullptr || tab == nullptr || L <= 0)) return -1;
   PipelineArgs a{upd, nullptr, dm, nullptr, pre, seg, tab, nullptr, nullptr,
                  out, nullptr, P, C, L, 0.f, 0.f, compression, kPlain};
-  const long long per_block = static_cast<long long>(kThreads) * kCols;
-  const dim3 grid(static_cast<unsigned>((P + per_block - 1) / per_block));
-  const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(C);
-  fedavg_kernel<true><<<grid, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_streaming<true, float>(a, blocks, tile_cols, rows, stages, smem_bytes,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // K1: out (D,) = base + sum over the N clients of wn[i] * upd[i, :], wn the
 // lr-scaled normalised weight row. dtype: 0 = float32, 1 = bfloat16, one
 // type for upd, base and out.
 int fedfog_fedavg_apply(const void* upd, const void* base, const float* wn,
-                        void* out, int N, long long D, int dtype, void* stream) {
+                        void* out, int N, long long D, int dtype, int blocks,
+                        int tile_cols, int rows, int stages, int smem_bytes,
+                        void* stream) {
   if (N <= 0 || D <= 0 || N > 4096) return -1;
-  const long long per_block = static_cast<long long>(kThreads) * kCols;
-  const dim3 grid(static_cast<unsigned>((D + per_block - 1) / per_block));
-  const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     Args<float> a{static_cast<const float*>(upd), static_cast<const float*>(base), wn,
                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                   static_cast<float*>(out), nullptr, D, N, 0, 1.f, 0.f, kNone, kPlain};
-    fedavg_kernel<false, float><<<grid, kThreads, shmem, s>>>(a);
-  } else if (dtype == 1) {
+    return launch_streaming<false, float>(a, blocks, tile_cols, rows, stages, smem_bytes, s);
+  }
+  if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     Args<bf16> a{static_cast<const bf16*>(upd), static_cast<const bf16*>(base), wn,
                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                  static_cast<bf16*>(out), nullptr, D, N, 0, 1.f, 0.f, kNone, kPlain};
-    fedavg_kernel<false, bf16><<<grid, kThreads, shmem, s>>>(a);
-  } else {
-    return -1;
+    return launch_streaming<false, bf16>(a, blocks, tile_cols, rows, stages, smem_bytes, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }
 
 }  // extern "C"

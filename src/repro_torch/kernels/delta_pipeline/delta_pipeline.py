@@ -12,6 +12,10 @@ UNnormalized weighted sum) from ``csrc/delta_pipeline.cu``. As in the JAX wrappe
 table (:func:`segment_table`) are computed outside the kernel with
 torch ops, on the device, with no host synchronisation.
 
+K3's weighted sum, K4 and K1 launch one streaming kernel on a grid and
+shared-memory ring that :func:`fedavg_plan` computes here from the
+shapes and the card's SM count, and hands the C entries as integers.
+
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. Launches are counted
@@ -25,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +43,119 @@ _AGGREGATOR = {"fedavg": 0, "median": 1, "trimmed": 2}
 _OPTIMIZER = {"fedavg": 0, "fedavgm": 1, "fedadam": 2}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
+# The streaming kernel's constants, as in csrc/delta_pipeline.cu.
+CONSUMERS = 256  # consumer threads; one producer warp besides
+COLS_PER_THREAD = 4  # so a tile is at most 1,024 columns
+MAX_STAGES = 32
+MAX_SMEM = 232_448  # 227 KB, the most one block may use
+STAGE_BYTES = 16_384  # rows per stage: at least this many bytes ...
+MIN_STAGE_ROWS = 32  # ... and at least 32 bytes of each column
+
+
+class FedavgPlan(NamedTuple):
+    """The streaming kernel's launch: ``blocks`` blocks, each owning one
+    range of at most ``cols_per_block`` columns (a multiple of
+    ``granule``, 16 bytes of columns), walked in tiles of ``tile_cols``
+    columns; a ring of ``stages`` stages of ``rows_per_stage`` client rows
+    in ``smem_bytes`` of dynamic shared memory."""
+
+    blocks: int
+    granule: int
+    cols_per_block: int
+    tile_cols: int
+    rows_per_stage: int
+    stages: int
+    smem_bytes: int
+    row_stride: int
+
+    def c_args(self) -> tuple[int, int, int, int, int]:
+        """The trailing plan arguments of the C entries."""
+        return (self.blocks, self.tile_cols, self.rows_per_stage, self.stages,
+                self.smem_bytes)
+
+    @property
+    def ring_bytes(self) -> int:
+        """Bytes of the ring, the most a block has in flight."""
+        return self.stages * self.rows_per_stage * self.row_stride
+
+
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def ring_offset(c: int, tile_cols: int) -> int:
+    """Where the ring starts in the kernel's dynamic shared memory: after
+    2 x MAX_STAGES mbarriers, the (C,) weight and clip-scale rows and the
+    tile's (tile_cols,) float32 sums; 128-byte aligned."""
+    return _align(_align(16 * MAX_STAGES + 8 * c, 16) + 4 * tile_cols, 128)
+
+
+@functools.lru_cache(maxsize=256)
+def fedavg_plan(c: int, p: int, elem_bytes: int, n_sms: int) -> FedavgPlan:
+    """The grid and ring of the streaming kernel for a (c, p) buffer of
+    ``elem_bytes``-byte elements on a card with ``n_sms`` SMs.
+
+    One block per SM (two were slower), no more blocks than there are
+    16-byte granules of columns, each owning the columns
+    :func:`block_ranges` gives it. A stage holds the rows of one tile of a
+    block's range (``row_stride`` bytes each: the tile and one granule of
+    slack for the row's shift), at least ``MIN_STAGE_ROWS / elem_bytes``
+    rows and ``STAGE_BYTES``; the ring takes as many stages as the block's
+    shared memory holds, up to every stage the block has. A pure function
+    of its integers, cached."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"elem_bytes must be 2 or 4, got {elem_bytes}")
+    if c < 1 or p < 1 or n_sms < 1:
+        raise ValueError(f"bad plan arguments c={c} p={p} n_sms={n_sms}")
+    granule = 16 // elem_bytes
+    granules = -(-p // granule)
+    blocks = min(n_sms, granules)
+    cols_per_block = -(-granules // blocks) * granule
+    tile_cols = min(cols_per_block, CONSUMERS * COLS_PER_THREAD)
+    tiles = -(-cols_per_block // tile_cols)
+    row_stride = tile_cols * elem_bytes + 16
+    room = MAX_SMEM - ring_offset(c, tile_cols)
+    if room < row_stride:
+        raise ValueError(f"no room for one row: c={c} p={p}")
+    rows = min(c, max(MIN_STAGE_ROWS // elem_bytes, STAGE_BYTES // row_stride))
+    stages_needed = tiles * -(-c // rows)
+    if stages_needed > 1:  # leave room for two stages
+        rows = max(1, min(rows, room // (2 * row_stride)))
+        stages_needed = tiles * -(-c // rows)
+    stages = min(stages_needed, room // (rows * row_stride), MAX_STAGES)
+    smem = ring_offset(c, tile_cols) + stages * rows * row_stride
+    return FedavgPlan(blocks, granule, cols_per_block, tile_cols, rows, stages, smem,
+                      row_stride)
+
+
+def block_ranges(p: int, granule: int, blocks: int) -> list[tuple[int, int]]:
+    """The column range [lo, hi) of each block, as the kernel computes it:
+    the ceil(p / granule) granules split as evenly as they go, the first
+    ``granules % blocks`` blocks one granule more; the last range ends at p."""
+    granules = -(-p // granule)
+    per, extra = divmod(granules, blocks)
+    out = []
+    for b in range(blocks):
+        g_lo = b * per + min(b, extra)
+        g_hi = g_lo + per + (1 if b < extra else 0)
+        out.append((g_lo * granule, min(g_hi * granule, p)))
+    return out
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(updates: torch.Tensor) -> FedavgPlan:
+    """:func:`fedavg_plan` for a (C, P) CUDA buffer on its own card."""
+    c, p = updates.shape
+    index = updates.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return fedavg_plan(c, p, updates.element_size(), sm_count(index))
+
 
 @functools.cache
 def library():
@@ -47,10 +165,12 @@ def library():
     kl.lib.fedfog_delta_sq_norms.argtypes = [_P, _P, _I, _LL, _P]
     kl.lib.fedfog_delta_sq_norms.restype = _I
     kl.lib.fedfog_delta_pipeline.argtypes = (
-        [_P] * 11 + [_I, _I, _LL, _F, _F, _I, _I, _I, _P]
+        [_P] * 11 + [_I, _I, _LL, _F, _F, _I, _I, _I] + [_I] * 5 + [_P]
     )
     kl.lib.fedfog_delta_pipeline.restype = _I
-    kl.lib.fedfog_delta_pipeline_partial.argtypes = [_P] * 6 + [_I, _I, _LL, _I, _P]
+    kl.lib.fedfog_delta_pipeline_partial.argtypes = (
+        [_P] * 6 + [_I, _I, _LL, _I] + [_I] * 5 + [_P]
+    )
     kl.lib.fedfog_delta_pipeline_partial.restype = _I
     return kl
 
@@ -285,7 +405,8 @@ def launch_pipeline(
             _ptr(pre), _ptr(seg), _ptr(tab), _ptr(noise), _ptr(mu),
             out.data_ptr(), _ptr(new_mu), c, n_leaves, p, float(lr),
             float(server_momentum), _COMPRESSION[compression],
-            _AGGREGATOR[aggregator], _OPTIMIZER[server_optimizer], stream,
+            _AGGREGATOR[aggregator], _OPTIMIZER[server_optimizer],
+            *device_plan(updates).c_args(), stream,
         )
     _raise_on(rc, "delta_pipeline_apply")
     launch_pipeline.launches += 1
@@ -330,7 +451,8 @@ def launch_partial(updates, dm, pre, seg, tab, out, *, compression):
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         rc = lib.fedfog_delta_pipeline_partial(
             updates.data_ptr(), dm.data_ptr(), _ptr(pre), _ptr(seg), _ptr(tab),
-            out.data_ptr(), c, n_leaves, p, _COMPRESSION[compression], stream,
+            out.data_ptr(), c, n_leaves, p, _COMPRESSION[compression],
+            *device_plan(updates).c_args(), stream,
         )
     _raise_on(rc, "delta_pipeline_partial")
     launch_partial.launches += 1

@@ -7,7 +7,8 @@ synchronisation), and launches ``fedfog_fedavg_apply`` of the delta
 pipeline's library (``delta_pipeline/csrc/delta_pipeline.cu``): K3's
 ``fedavg_kernel`` with every gate off, so K1 sums over the clients in
 K3's order with K3's FMAs and applies ``base + Σ wn_i·Δ_i`` with one
-rounding to the output dtype. CUDA tensors only: it checks device, dtype
+rounding to the output dtype, on the grid and ring of ``delta_pipeline.fedavg_plan``
+at the updates' element size. CUDA tensors only: it checks device, dtype
 (float32 or bfloat16, one for updates and base), shapes and contiguity,
 allocates the output with ``torch.empty``, launches on the current stream
 and raises if the launch is refused. ``launch_fedavg.launches`` grows by
@@ -31,7 +32,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def library():
     """The delta pipeline's library (built on first use) with K1 bound."""
     kl = dp_cuda.library()
-    kl.lib.fedfog_fedavg_apply.argtypes = [_P] * 4 + [_I, _LL, _I, _P]
+    kl.lib.fedfog_fedavg_apply.argtypes = [_P] * 4 + [_I, _LL, _I] + [_I] * 5 + [_P]
     kl.lib.fedfog_fedavg_apply.restype = _I
     return kl
 
@@ -77,7 +78,8 @@ def launch_fedavg(updates, base, wn, out):
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         rc = lib.fedfog_fedavg_apply(updates.data_ptr(), base.data_ptr(), wn.data_ptr(),
-                                     out.data_ptr(), n, d, _DTYPES[updates.dtype], stream)
+                                     out.data_ptr(), n, d, _DTYPES[updates.dtype],
+                                     *dp_cuda.device_plan(updates).c_args(), stream)
     if rc != 0:
         raise RuntimeError(f"fedavg_apply: launch failed (code {rc})")
     launch_fedavg.launches += 1

@@ -24,6 +24,8 @@ from repro.kernels.delta_pipeline import delta_sq_norms as jax_sq_norms
 from repro.kernels.delta_pipeline import segment_table as jax_segment_table
 from repro_torch.kernels.delta_pipeline import (
     delta_pipeline_apply,
+    delta_pipeline_partial,
+    delta_pipeline_partial_ref,
     delta_pipeline_ref,
     delta_sq_norms,
     segment_table,
@@ -175,3 +177,17 @@ def test_kernels_on_card():
         ref = delta_pipeline_ref(*args, lr=0.7, **kw)
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
     assert cu.launch_pipeline.launches == before + 5
+    # A contiguous view one element past a 16-byte boundary: every row and
+    # both ends of the buffer are misaligned for the kernel's bulk copies.
+    # With every gate off K3 and K4 equal their plain versions bit for bit.
+    flat = torch.cat([torch.zeros(1, device=dev), fx["upd"].reshape(-1)])
+    view = flat[1:].view(fx["upd"].shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    args = (view, fx["base"], fx["mask"], fx["weights"])
+    assert torch.equal(delta_pipeline_apply(*args, lr=0.7), delta_pipeline_ref(*args, lr=0.7))
+    out = delta_pipeline_apply(*args, lr=0.7, dp_noise=fx["noise"])
+    ref = delta_pipeline_ref(*args, lr=0.7, dp_noise=fx["noise"])
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    dm = fx["mask"].float() * fx["weights"]
+    assert torch.equal(delta_pipeline_partial(view, dm), delta_pipeline_partial_ref(view, dm))
+    assert cu.launch_pipeline.launches == before + 7

@@ -9,7 +9,9 @@ Tolerances: K6's state agrees bit for bit (the kernel rounds each element
 update as the plain version does; 1e-6 of max |S| allowed), y to 1e-5 in
 float32 (the sum over K in another order) and to one bf16 rounding
 (2^-7 relative) plus 1e-5 of max |y| in bf16; K1 to the JAX tests'
-absolute 2e-6 (float32) and 5e-2 (bf16).
+absolute 2e-6 (float32) and 5e-2 (bf16), also on contiguous views that
+start one or more elements past a 16-byte boundary (every row and both
+ends of the buffer misaligned for the kernel's bulk copies).
 """
 import numpy as np
 import pytest
@@ -84,6 +86,34 @@ def test_fedavg_kernel_matches_plain_version(case):
     rng = np.random.default_rng(1)
     dt = getattr(torch, dtype)
     upd = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda().to(dt)
+    base = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).cuda().to(dt)
+    mask = torch.from_numpy(rng.random(n) < 0.7).cuda()
+    w = torch.from_numpy((np.abs(rng.standard_normal(n)) * 100).astype(np.float32)).cuda()
+    out = fedavg_apply(upd, base, mask, w, lr=0.9)
+    ref = fedavg_apply_ref(upd, base, mask, w, lr=0.9)
+    assert out.dtype == base.dtype
+    tol = 5e-2 if dtype == "bfloat16" else 2e-6
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               rtol=0, atol=tol)
+
+
+# (N, D, dtype, offset): contiguous views whose first element lies
+# ``offset`` elements past a 16-byte boundary, so every row and both ends
+# of the buffer are misaligned for the kernel's bulk copies.
+FEDAVG_VIEW_CASES = [(8, 1000, "float32", 1), (64, 333, "float32", 3),
+                     (32, 5000, "bfloat16", 1), (16, 4999, "bfloat16", 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FEDAVG_VIEW_CASES, ids=str)
+def test_fedavg_kernel_on_a_misaligned_view(case):
+    _card()
+    n, d, dtype, offset = case
+    rng = np.random.default_rng(2)
+    dt = getattr(torch, dtype)
+    flat = torch.from_numpy(rng.standard_normal(n * d + offset).astype(np.float32))
+    upd = flat.cuda().to(dt)[offset:].view(n, d)
+    assert upd.is_contiguous() and upd.data_ptr() % 16 != 0
     base = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).cuda().to(dt)
     mask = torch.from_numpy(rng.random(n) < 0.7).cuda()
     w = torch.from_numpy((np.abs(rng.standard_normal(n)) * 100).astype(np.float32)).cuda()
