@@ -11,7 +11,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 (seconds, and the -Xptxas -v register / shared-memory
                 report; the three instantiations of the streaming
                 fedavg_kernel of K1, K3 and K4 on a line each, and no
-                spills in any);
+                spills in any; K6's chunk size, window, grid and shared
+                memory at the prefill's shape, and the registers and
+                spills of each of its instantiations);
   3. kernels  — K1 (fedavg_apply) held against its plain version at the
                 JAX package's FEDAVG_CASES shapes, the simulator's cohort
                 (64, 112,766) in float32 and bf16 and kernels_bench's
@@ -56,10 +58,12 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 (wkv6_fwd) held against its plain version at the rwkv6
                 prefill's shape (B=1, T=128, H=32, K=V=64, bf16), at B=2
                 with a ragged T=100, at T < 32, in float32, on strided views
-                and with strong decay (ww in [-4, 3], float32 and bf16):
-                y to one bf16 rounding (float32: 1e-5) and the float32 state
-                to 1e-5 of its max, every value finite; then timed at the
-                prefill's shape beside the plain version and the bound;
+                (float32 and bf16), with strong decay (ww in [-4, 3], float32 and bf16) and at a
+                long T=2,048 (16 windows of the kernel's staging, the state
+                carried from one to the next): y to one bf16 rounding
+                (float32: 1e-5) and the float32 state to 1e-5 of its max,
+                every value finite; then timed at the prefill's shape beside
+                the plain version and the bound;
   4. slices   — the port's main paths through FedFogSimulator(...,
                 device="cuda").run_scanned(), launch counts set to 0 just
                 before each run and read just after:
@@ -416,21 +420,17 @@ def fedavg_plan_line(torch, dp, name, c, p, dtype):
         ring_bytes=pl.ring_bytes, bytes_in_flight_per_sm=first_fill)
 
 
-def fedavg_ptxas(log_text: str) -> list[dict]:
-    """fedavg_kernel's instantiations in an `-Xptxas -v` report: name,
-    registers, stack, spill stores and loads."""
+def ptxas_entries(log_text: str, kernel: str) -> list[dict]:
+    """The instantiations of ``kernel`` in an `-Xptxas -v` report: mangled
+    name, registers, static shared memory, stack, spill stores and loads."""
     import re
 
     out, cur = [], None
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
             cur = None
-            if "fedavg_kernel" in ln:
-                mangled = ln.split("'")[1]
-                kind = ("<true, float> (K4)" if "ILb1E" in mangled else
-                        "<false, bf16> (K1)" if "bfloat16" in mangled else
-                        "<false, float> (K3, K1)")
-                cur = {"kernel": f"fedavg_kernel{kind}"}
+            if kernel in ln:
+                cur = {"mangled": ln.split("'")[1]}
                 out.append(cur)
         elif cur is not None and "spill stores" in ln:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
@@ -439,6 +439,19 @@ def fedavg_ptxas(log_text: str) -> list[dict]:
             cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
             m = re.search(r"(\d+) bytes smem", ln)
             cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def fedavg_ptxas(log_text: str) -> list[dict]:
+    """fedavg_kernel's instantiations in an `-Xptxas -v` report: name,
+    registers, stack, spill stores and loads."""
+    out = []
+    for entry in ptxas_entries(log_text, "fedavg_kernel"):
+        mangled = entry.pop("mangled")
+        kind = ("<true, float> (K4)" if "ILb1E" in mangled else
+                "<false, bf16> (K1)" if "bfloat16" in mangled else
+                "<false, float> (K3, K1)")
+        out.append({"kernel": f"fedavg_kernel{kind}", **entry})
     return out
 
 
@@ -945,16 +958,47 @@ K6_CASES = [
     ("strided views, ragged", 2, 77, 4, "float32", (-4.0, 0.5), True),
     ("strong decay, float32", 1, PROMPT, 8, "float32", (-4.0, 3.0), False),
     ("strong decay", 1, PROMPT, RWKV_HEADS, "bfloat16", (-4.0, 3.0), False),
+    ("strided views, bf16", 1, 50, 4, "bfloat16", (-4.0, 0.5), True),
+    ("long T, the state carried over 16 windows", 1, 2048, RWKV_HEADS, "bfloat16",
+     (-4.0, 0.5), False),
 ]
-# y: the kernel and the plain version compute in float32 (the same
-# element updates, the sum over K in another order) and round once to
-# the input dtype, so bf16 outputs may land one bf16 step (2^-7 relative)
-# apart; float32 differ by the sum's order (1e-5). Both plus 1e-5 of
-# max |y| for the sums' cancellations. State: float32, the plain
-# version's element arithmetic, so 1e-5 of its max |S| is generous.
+# y: both compute in float32 and round once to the input dtype. The
+# kernel works in chunks (a state carried from chunk to chunk, the steps
+# within one summed as scores times v) and forms each decay as a running
+# product of the chunk's clamped w <= 1; the plain version steps through
+# T, multiplying its state by w at every step. So the two sum y's terms in
+# different orders and reach each decay by different products of the same
+# w, a few float32 roundings apart, and the kernel's final products for y
+# run on the tensor cores in 3xTF32 (about 2^-20 of each): float32 outputs
+# agree to 1e-5, and bf16 outputs may land one bf16 step (2^-7 relative)
+# apart. Both plus 1e-5 of
+# max |y| for the sums' cancellations. State: float32, the same terms
+# summed in another order, within 1e-5 of its max |S|.
 K6_Y_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 K6_ATOL_OF_MAX = 1e-5
 WKV_CHUNK = 32  # the TPU kernel's chunk
+
+
+def wkv6_plan(lib, b, h) -> dict:
+    """K6's launch plan from its library (``fedfog_wkv6_plan``)."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    lib.fedfog_wkv6_plan(b, h, out)
+    keys = ("chunk", "window", "threads", "grid_x", "grid_y", "grid_z", "smem_bytes")
+    return dict(zip(keys, out))
+
+
+def wkv6_ptxas(log_text: str) -> list[dict]:
+    """The K6 kernel's instantiations in an `-Xptxas -v` report: dtype,
+    loads, registers, stack, spill stores and loads."""
+    out = []
+    for entry in ptxas_entries(log_text, "wkv6_chunked_kernel"):
+        mangled = entry.pop("mangled")
+        out.append({"kernel": "wkv6_chunked_kernel",
+                    "dtype": "bfloat16" if "bfloat16" in mangled else "float32",
+                    "loads": "16-byte" if "Lb1E" in mangled else "element", **entry})
+    return out
 
 
 def k6_ops(b, t, h, dk=64, dv=64):
@@ -968,6 +1012,18 @@ def k6_ops(b, t, h, dk=64, dv=64):
     nc = -(-t // WKV_CHUNK)
     chunked = b * h * nc * (4 * WKV_CHUNK * dk * dv + 2 * WKV_CHUNK ** 2 * (dk + dv))
     return min(step, chunked)
+
+
+def k6_bound(b, t, h, dtype):
+    """K6's bound over (B, T, H), K = V = 64: (ms, "bytes" or "operations",
+    bytes, operations), the larger of the bytes moved (each input read
+    once, each output written once) over the HBM rate and the operations
+    (``k6_ops``) over the float32 rate."""
+    el = 2 if dtype == "bfloat16" else 4
+    n_bytes = el * 4 * b * t * h * 64 + 4 * h * 64 + el * b * t * h * 64 + 4 * b * h * 64 * 64
+    n_ops = k6_ops(b, t, h)
+    by = (n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S)
+    return max(by) * 1e3, "bytes" if by[0] >= by[1] else "operations", n_bytes, n_ops
 
 
 def k6_compare(torch, y, s, yp, sp):
@@ -1047,11 +1103,7 @@ def phase_wkv6_kernel(torch):
         "k6": cuda_ms(lambda i: wkv6_cuda(r, k, v, w, u, w_min=w_min), 400),
         "k6_plain": cuda_ms(lambda i: ops.wkv6_plain(r, k, v, w, u), 5, n_warm=2),
     }
-    el = 2  # bytes per bf16 element
-    k6_bytes = el * 4 * b * t * h * 64 + 4 * h * 64 + el * b * t * h * 64 + 4 * b * h * 64 * 64
-    n_ops = k6_ops(b, t, h)
-    by6 = (k6_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S)
-    b6 = max(by6) * 1e3
+    b6, bound_by, k6_bytes, n_ops = k6_bound(b, t, h, "bfloat16")
     say("timing", kernel="wkv6_fwd", B=b, T=t, H=h, K=64, V=64, dtype="bfloat16",
         ms=tm["k6"], plain_ms=tm["k6_plain"], library_ms=None,
         library="none: no single PyTorch call computes WKV6", bound_ms=b6,
@@ -1061,8 +1113,7 @@ def phase_wkv6_kernel(torch):
             "replaces": "src/repro/kernels/wkv6/wkv6.py:111", "launches": None,
             "on_main_path": True, "max_abs_err": worst, "ms": tm["k6"],
             "plain_ms": tm["k6_plain"], "bound_ms": b6,
-            "bound_by": "bytes" if by6[0] >= by6[1] else "operations",
-            "library_ms": None}
+            "bound_by": bound_by, "library_ms": None}
 
 
 # ---- the serving slice: continuous batching of llama3.2-1b ------------ #
@@ -1195,8 +1246,9 @@ def phase_serving(torch):
 # K6 vs its plain version in the full prefill of the 16 prompts, against
 # the float32 prefill of the same (bf16-valued) weights on the plain version:
 #   * float32 model: K6 and the plain version differ only in the order of
-#     y's sum over K (~1e-6 relative), carried through 24 layers; held to
-#     RWKV_F32_RTOL of the float32 logits' max |value|;
+#     y's sums and in the products by which each decay is formed (~1e-6
+#     relative), carried through 24 layers; held to RWKV_F32_RTOL of the
+#     float32 logits' max |value|;
 #   * bf16 model (the served one): the two round y once each to bf16 and
 #     may land a bf16 step apart, a difference the 24 layers' residual
 #     stream and bf16 GEMMs amplify (9.4 % of max |logit| between them in
@@ -1488,6 +1540,14 @@ def main() -> int:
         say("build", **entry)
         check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
               f"{entry['kernel']} spills")
+    # K6: the chunk-parallel kernel's plan at the prefill's shape, and its
+    # instantiations
+    say("build", kernel="wkv6_fwd", B=1, H=RWKV_HEADS,
+        **wkv6_plan(wkv_library().lib, 1, RWKV_HEADS))
+    k6_entries = wkv6_ptxas(wkv_library().log_path.read_text())
+    check(len(k6_entries) == 4, f"wkv6 instantiations in ptxas: {k6_entries}")
+    for entry in k6_entries:
+        say("build", **entry)
 
     # 3. kernels against their plain versions, then timing
     kernels = {k["name"]: k for k in phase_kernels(torch, dp)}
