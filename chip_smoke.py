@@ -27,9 +27,13 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 clip (with K2) / int8 / top-k; the streaming fedavg_kernel
                 with every gate off bit for bit equal (torch.equal) to its
                 plain version for K3, K4 and K1 in float32 at EXACT_CASES
-                (the slice, a fog's block, contiguous views one or three
-                elements past a 16-byte boundary, P = 112,767, C = 1, C =
-                4,096 at P = 130), and K1 in bf16 at D = 4,999 (aligned and
+                (the slice, a fog's block at four fogs and at two, HAR's
+                156,230 columns aligned and one element past and its fog
+                block, contiguous views one or three elements past a
+                16-byte boundary, P = 112,767, C = 1, C = 4,096 at P =
+                130), K4 on all-zero weights equal to plain and to zero
+                and K3 on an all-false mask equal to plain and to the
+                base (ZERO_WEIGHT_CASES), and K1 in bf16 at D = 4,999 (aligned and
                 misaligned) and at the cohort to the JAX tests' tolerance
                 and equal to its own arithmetic (k1_exact);
                 then K2, K3 and K4 timed at the
@@ -37,7 +41,9 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 and one PyTorch library call, K1 likewise at (64,
                 112,766) and (32, 65,536) float32 and at (64, 112,766) in
                 bf16 (beside torch.addmv in bf16), K3's median and
-                trimmed-mean route once at the slice, and the streaming
+                trimmed-mean route once at the slice beside torch.median /
+                torch.sort + slice + mean over the selected rows, K4 at
+                two fogs' 32-row blocks beside torch.mv, and the streaming
                 kernel's plan (blocks, columns per block, rows per stage,
                 stages, bytes in flight per SM) printed at each timed
                 shape; K5 (flash_attention_fwd) held
@@ -79,6 +85,27 @@ Phases, one line of output each (any failure raises and exits non-zero):
                   M = 10^6, ms/round and peak bytes printed; then 3 rounds at
                   population 10^6 with one fog (K3 three times) and 3 dense
                   rounds with four fogs (K4 twelve times);
+                  robustness, at the dense configuration (20 rounds unless
+                  noted, K2 never launched): Table V's five attack settings
+                  under FedAvg (K3 20 times each), noise and model
+                  replacement under median and trimmed mean (K3 20 times
+                  each, all on robust_kernel as K3's C entry counts it), final accuracies and the severity order
+                  printed; HAR dense (K3 20 times, final accuracy > 0.3)
+                  and 3 HAR rounds at population 10^6 with four fogs (K4 12
+                  times); the fault runs of benchmarks/robustness_faults.py
+                  (crash 0.2 and 0.5 with 2 retries, the storm as a barrier
+                  and with a deadline and quorum: K3 20 times and retries
+                  > 0; fog outages at two fogs (K4 40 times) and at
+                  population + four fogs (K4 80 times), without failover
+                  losing updates and with it losing none and rerouting some),
+                  dispatched = completed + terminal + lost in every round;
+                  3 rounds below quorum leaving the parameters bitwise
+                  unchanged, every dispatching round skipped; the host
+                  synchronisations of 3 rounds with faults and the noise
+                  attack equal to those without; a 20-round run tapped
+                  every 5 rounds, its rows equal to the history and its
+                  history equal to the untapped run's; ms/round of each
+                  run printed beside the card's name and power limit;
                 serving: ContinuousBatchingEngine for full-width llama3.2-1b
                 in bf16 (random weights from a seed), attn_impl "flash" and
                 attn "paged", 8 slots of 16-token pages, 128-token prompts,
@@ -158,12 +185,19 @@ def kernel_counters():
 
 
 def zero_counts() -> None:
-    for fn in kernel_counters().values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
+    counters["delta_pipeline_apply"].robust_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """{kernel: launches}, K1 to K7, and ``robust_kernel``: the K3
+    launches that K3's C entry sent to its median / trimmed route."""
+    counters = kernel_counters()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    counts["robust_kernel"] = counters["delta_pipeline_apply"].robust_launches
+    return counts
 
 
 def check(cond: bool, msg: str) -> None:
@@ -324,12 +358,18 @@ def check_fedavg(torch, fa, dev):
 # off equals its plain version bit for bit: clients in order, one FMA each
 # (ref.py's _fma rounds once), one rounding of the apply. (name, C, P,
 # elements from a 16-byte boundary to the buffer's first element): the
-# slice, a fog's block, a contiguous view one element past a boundary (so
-# every row and both ends of the tensor are misaligned), a ragged P, one
-# client, and 4,096 clients at a small P.
+# slice, a fog's block at four fogs and at two, HAR's cohort (156,230
+# columns, a row 8 mod 16 bytes long) aligned and one element past, HAR's
+# fog block, a contiguous view one element past a boundary (so every row
+# and both ends of the tensor are misaligned), a ragged P, one client,
+# and 4,096 clients at a small P.
 EXACT_CASES = [
     ("slice", 64, 112_766, 0),
     ("fog block", 16, 112_766, 0),
+    ("fog block, two fogs", 32, 112_766, 0),
+    ("HAR", 64, 156_230, 0),
+    ("HAR, view +1", 64, 156_230, 1),
+    ("HAR fog block", 16, 156_230, 0),
     ("view one element past 16 bytes", 64, 112_766, 1),
     ("P 112,767", 64, 112_767, 0),
     ("P 112,767, view +3", 16, 112_767, 3),
@@ -385,6 +425,7 @@ def check_streaming_exact(torch, dp, fa, dev):
             offset_bytes=upd.data_ptr() % 16, **{f"{k}_equal": v for k, v in eq.items()})
         for k, v in eq.items():
             check(v, f"{k} not bitwise equal to its plain version at {name}")
+    check_zero_weight(torch, dp, gen, dev)
     for i, (n, d, offset) in enumerate(K1_BF16_CASES):
         gen.manual_seed(950 + i)
         upd = offset_view(torch, n, d, offset, torch.bfloat16, gen, dev)
@@ -402,6 +443,40 @@ def check_streaming_exact(torch, dp, fa, dev):
               f"fedavg_apply bf16 {n}x{d}+{offset}")
         check(err <= K1_ATOL["bfloat16"], f"fedavg_apply bf16 {n}x{d}+{offset}: {err}")
         check(same, f"fedavg_apply bf16 {n}x{d}+{offset}: not its own arithmetic")
+
+
+# Blocks that sum zero weight on the robustness path: a dark fog's K4
+# block (C_local, P) with every weight 0, and K3 on a skipped round's
+# all-false mask (C, P). (name, C, P, elements past a 16-byte boundary.)
+ZERO_WEIGHT_CASES = [
+    ("dark fog, four fogs", 16, 112_766, 0),
+    ("dark fog, two fogs", 32, 112_766, 0),
+    ("dark fog, HAR", 16, 156_230, 0),
+    ("skipped round", 64, 112_766, 0),
+    ("skipped round, HAR, view +1", 64, 156_230, 1),
+]
+
+
+def check_zero_weight(torch, dp, gen, dev):
+    """K4 on an all-zero weight block equals its plain version and is
+    zero; K3 on an all-false mask equals its plain version and the base."""
+    for i, (name, c, p, offset) in enumerate(ZERO_WEIGHT_CASES):
+        gen.manual_seed(970 + i)
+        upd = offset_view(torch, c, p, offset, torch.float32, gen, dev, scale=0.05)
+        base = torch.randn((p,), generator=gen, device=dev)
+        w = torch.rand((c,), generator=gen, device=dev) * 300 + 10
+        mask = torch.zeros((c,), dtype=torch.bool, device=dev)
+        dm = mask.float() * w
+        k4 = dp.delta_pipeline_partial(upd, dm)
+        k3 = dp.delta_pipeline_apply(upd, base, mask, w, lr=0.7)
+        eq = {"k4": torch.equal(k4, dp.delta_pipeline_partial_ref(upd, dm)),
+              "k4_zero": torch.equal(k4, torch.zeros_like(k4)),
+              "k3": torch.equal(k3, dp.delta_pipeline_ref(upd, base, mask, w, lr=0.7)),
+              "k3_base": torch.equal(k3, base)}
+        say("kernels", kernel="fedavg_kernel", case=repr(name), C=c, P=p, weight=0,
+            offset_bytes=upd.data_ptr() % 16, **{f"{k}_equal": v for k, v in eq.items()})
+        for k, v in eq.items():
+            check(v, f"{k} check failed on zero weight at {name}")
 
 
 def fedavg_plan_line(torch, dp, name, c, p, dtype):
@@ -645,6 +720,41 @@ def phase_kernels(torch, dp):
 
         t_robust[agg] = cuda_ms(k3_robust, 20)
 
+    # Their library yardsticks at the same shape and masks, the boolean row
+    # gather x[mask] (a host synchronisation per call) included:
+    # torch.median over the selected rows, and torch.sort + slice + mean
+    # for the trimmed mean (k = floor(0.1 · selected) per side).
+    k_trim = [int(0.1 * int(b["mask"].sum())) for b in bufs]
+
+    def trimmed_lib(x, k):
+        return torch.sort(x, dim=0).values[k:x.shape[0] - k].mean(dim=0)
+
+    t_robust_lib = {
+        "median": cuda_ms(lambda i: torch.median(bufs[i % 4]["upd"][bufs[i % 4]["mask"]],
+                                                 dim=0), 20),
+        "trimmed": cuda_ms(lambda i: trimmed_lib(bufs[i % 4]["upd"][bufs[i % 4]["mask"]],
+                                                 k_trim[i % 4]), 20),
+    }
+
+    # K4 at two fogs (the fault runs' fog_nodes=2): a 32-row block, the
+    # eight blocks of the four buffers used in turn.
+    blocks32 = [(b["upd"][f * 32:(f + 1) * 32],
+                 (b["mask"].float() * b["weights"])[f * 32:(f + 1) * 32].contiguous())
+                for b in bufs for f in range(2)]
+    for f, (x, dm32) in enumerate(blocks32):
+        cu.launch_partial(x, dm32, None, None, None, out4, compression="none")
+        same = torch.equal(out4, dp.delta_pipeline_partial_ref(x, dm32))
+        check(same, f"delta_pipeline_partial at 32 rows, block {f}: not its plain version")
+    say("kernels", kernel="delta_pipeline_partial", C_local=32, P=p, blocks=len(blocks32),
+        timed_blocks_equal_to_plain=True)
+    t4_32 = {
+        "k4": cuda_ms(lambda i: cu.launch_partial(*blocks32[i % 8], None, None, None,
+                                                  out4, compression="none"), 400),
+        "k4_plain": cuda_ms(lambda i: dp.delta_pipeline_partial_ref(*blocks32[i % 8]), 20),
+        "k4_lib": cuda_ms(lambda i: torch.mv(blocks32[i % 8][0].t(), blocks32[i % 8][1],
+                                             out=out4), 400),
+    }
+
     t = {
         "k1": cuda_ms(k1, 200), "k1_plain": cuda_ms(k1_plain, 100),
         "k1_lib": cuda_ms(k1_lib, 200),
@@ -690,7 +800,17 @@ def phase_kernels(torch, dp):
         share_of_bound=bound1bf / t_bf["k1"])
     for agg, ms in t_robust.items():
         say("timing", kernel="delta_pipeline_apply", route="robust_kernel", aggregator=agg,
-            C=c, P=p, ms=ms, bound_ms=bound3, share_of_bound=bound3 / ms)
+            C=c, P=p, ms=ms, bound_ms=bound3, share_of_bound=bound3 / ms,
+            library_ms=t_robust_lib[agg],
+            library="torch.median(x[mask], dim=0)" if agg == "median"
+            else "torch.sort(x[mask], dim=0) + slice + mean")
+    k4_32_bytes = 4 * (32 * p + 32 + p)
+    by4_32 = (k4_32_bytes / HBM_BYTES_PER_S, 2 * 32 * p / FP32_FLOP_PER_S)
+    bound4_32 = max(by4_32) * 1e3
+    say("timing", kernel="delta_pipeline_partial", C_local=32, P=p, ms=t4_32["k4"],
+        plain_ms=t4_32["k4_plain"], library_ms=t4_32["k4_lib"], library="torch.mv",
+        bound_ms=bound4_32, bytes=k4_32_bytes, share_of_bound=bound4_32 / t4_32["k4"])
+    fedavg_plan_line(torch, dp, "delta_pipeline_partial", 32, p, torch.float32)
     for name, cc, pp, dt in (("delta_pipeline_apply", c, p, torch.float32),
                              ("delta_pipeline_partial", cl, p, torch.float32),
                              ("fedavg_apply", c, p, torch.bfloat16),
@@ -723,12 +843,15 @@ def phase_kernels(torch, dp):
          "max_abs_err": errs["delta_pipeline_apply"], "ms": t["k3"],
          "plain_ms": t["k3_plain"], "bound_ms": bound3, "bound_by": bound_by3,
          "library_ms": t["k3_lib"], "median_ms": t_robust["median"],
-         "trimmed_ms": t_robust["trimmed"]},
+         "trimmed_ms": t_robust["trimmed"], "median_library_ms": t_robust_lib["median"],
+         "trimmed_library_ms": t_robust_lib["trimmed"]},
         {"name": "delta_pipeline_partial", "route": "cuda", "source": src,
          "replaces": f"{pallas}:536", "launches": None, "on_main_path": True,
          "max_abs_err": errs["delta_pipeline_partial"], "ms": t["k4"],
          "plain_ms": t["k4_plain"], "bound_ms": bound4, "bound_by": bound_by4,
-         "library_ms": t["k4_lib"]},
+         "library_ms": t["k4_lib"], "rows32_ms": t4_32["k4"],
+         "rows32_plain_ms": t4_32["k4_plain"], "rows32_bound_ms": bound4_32,
+         "rows32_library_ms": t4_32["k4_lib"]},
     ]
 
 
@@ -1451,7 +1574,7 @@ def phase_serving_rwkv6(torch):
     return launches
 
 
-def run_slice(torch, sim_mod, rounds, **overrides):
+def run_slice(torch, sim_mod, rounds, tap=None, **overrides):
     """Drive a main path of the port: build the simulator, set the launch
     counts to 0, run ``run_scanned()``, read the counts. Returns (history,
     {kernel: launches}, init seconds, run seconds, peak bytes)."""
@@ -1459,7 +1582,7 @@ def run_slice(torch, sim_mod, rounds, **overrides):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sim = sim_mod.FedFogSimulator(cfg, device="cuda")
+    sim = sim_mod.FedFogSimulator(cfg, device="cuda", tap=tap)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     zero_counts()
@@ -1479,6 +1602,197 @@ def run_slice(torch, sim_mod, rounds, **overrides):
 def expect_launches(launches, **want):
     for name, n in want.items():
         check(launches[name] == n, f"{name} launched {launches[name]} times, not {n}")
+
+
+# ---- the robustness path: Table V's attacks, HAR, faults, a tap ------- #
+# benchmarks/robustness.py's Table V settings (name, attack, fraction).
+TABLE_V = (("clean", "none", 0.0), ("label_flip", "label_flip", 0.20),
+           ("noise", "noise", 0.20), ("dropout", "dropout", 0.20),
+           ("model_replacement", "model_replacement", 0.05))
+# The JAX package's own accuracy bar for HAR (tests/test_fl_integration.py).
+HAR_MIN_ACCURACY = 0.3
+# benchmarks/robustness_faults.py's storm.
+STORM = dict(crash_rate=0.5, max_retries=2, backoff_base_ms=500.0)
+
+
+def check_conservation(hist, name) -> None:
+    """dispatched == completed + terminal + lost, in every round."""
+    for r, d in enumerate(hist["fault_dispatched"]):
+        rest = (hist["fault_completed"][r] + hist["fault_terminal"][r]
+                + hist["fault_lost"][r])
+        check(d == rest, f"{name}: round {r} dispatched {d} != {rest}")
+
+
+def count_syncs(torch, fn) -> int:
+    """Synchronising CUDA calls made by ``fn()``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (``fn`` ends
+    with its own device-to-host copy; nothing else runs in the window)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_robustness(torch, sim_mod, smi) -> dict:
+    """The simulator's robustness path (benchmarks/robustness.py and
+    robustness_faults.py) at the dense configuration: Table V's attacks
+    (K3's mean route, then its robust route under median and trimmed),
+    HAR dense (K3) and at population 10^6 with four fogs (K4), the fault
+    runs (K3 and, at two and four fogs, K4 on blocks of dark fogs), the
+    quorum carry-over, the host synchronisations with and without faults
+    and an attack, and a tapped run. Returns {kernel: launches} summed over
+    its counted runs, and K3's on the robust route."""
+    from repro_torch.obs import MemoryTracker, MetricTap
+    from repro_torch.sim.faults import FaultConfig
+
+    totals = {name: 0 for name in kernel_counters()}
+    totals["robust_kernel"] = 0
+    none = dict(delta_sq_norms=0, fedavg_apply=0)
+
+    def run(name, rounds, want, **over):
+        h, ln, _, sec, _ = run_slice(torch, sim_mod, rounds, **over)
+        robust = want["delta_pipeline_apply"] if over.get("aggregator") in (
+            "median", "trimmed") else 0
+        expect_launches(ln, **none, robust_kernel=robust, **want)
+        for k, v in ln.items():
+            totals[k] += v
+        if over.get("faults") is not None:
+            check_conservation(h, name)
+        ms = sec / rounds * 1e3
+        return h, ms
+
+    k3_only = dict(delta_pipeline_apply=20, delta_pipeline_partial=0)
+    # Table V under Eq. 6 FedAvg, then the two delta attacks under the
+    # robust aggregators (robust_kernel).
+    finals = {}
+    for name, attack, frac in TABLE_V:
+        h, ms = run(name, 20, k3_only, attack=attack, attack_fraction=frac)
+        finals[name] = h["final_accuracy"]
+        say("robustness", run=f"tableV/{name}", aggregator="fedavg", rounds=20,
+            final_accuracy=h["final_accuracy"], ms_per_round=ms, card=repr(smi))
+    drops = {k: finals["clean"] - v for k, v in finals.items() if k != "clean"}
+    say("robustness", run="tableV/summary", clean=finals["clean"],
+        severity_order=">".join(sorted(drops, key=lambda k: -drops[k])),
+        **{f"drop_{k}": v for k, v in drops.items()})
+    for agg in ("median", "trimmed"):
+        for name, attack, frac in TABLE_V[2::2]:
+            h, ms = run(name, 20, k3_only, attack=attack, attack_fraction=frac,
+                        aggregator=agg)
+            say("robustness", run=f"tableV/{name}", aggregator=agg, rounds=20,
+                final_accuracy=h["final_accuracy"], ms_per_round=ms, card=repr(smi))
+
+    # HAR: dense through K3, then at population 10^6 with four fogs (K4).
+    h, ms = run("har", 20, k3_only, task="har")
+    say("robustness", run="har/dense", rounds=20, final_accuracy=h["final_accuracy"],
+        accuracy=[round(a, 4) for a in h["accuracy"]], ms_per_round=ms, card=repr(smi))
+    check(h["final_accuracy"] > HAR_MIN_ACCURACY,
+          f"HAR final accuracy {h['final_accuracy']} <= {HAR_MIN_ACCURACY}")
+    h, ms = run("har/pop", 3, dict(delta_pipeline_partial=12, delta_pipeline_apply=0),
+                task="har", **POP_FOG)
+    say("robustness", run="har/population+fog", rounds=3, fog_nodes=4,
+        accuracy=[round(a, 4) for a in h["accuracy"]], ms_per_round=ms, card=repr(smi))
+
+    # Faults, as benchmarks/robustness_faults.py sets them.
+    fault_runs = (
+        ("crash_0.2", dict(faults=FaultConfig(crash_rate=0.2, max_retries=2)), k3_only),
+        ("crash_0.5", dict(faults=FaultConfig(crash_rate=0.5, max_retries=2)), k3_only),
+        ("storm/barrier", dict(faults=FaultConfig(**STORM)), k3_only),
+        ("storm/deadline", dict(faults=FaultConfig(**STORM, deadline_ms=4000.0,
+                                                    quorum_frac=0.25)), k3_only),
+        ("outage/2fogs", dict(fog_nodes=2, faults=FaultConfig(fog_outage_rate=0.3)),
+         dict(delta_pipeline_partial=40, delta_pipeline_apply=0)),
+        ("outage/2fogs/failover", dict(fog_nodes=2, faults=FaultConfig(
+            fog_outage_rate=0.3, fog_failover=True)),
+         dict(delta_pipeline_partial=40, delta_pipeline_apply=0)),
+        ("outage/pop+fog", dict(POP_FOG, faults=FaultConfig(fog_outage_rate=0.3)),
+         dict(delta_pipeline_partial=80, delta_pipeline_apply=0)),
+        ("outage/pop+fog/failover", dict(POP_FOG, faults=FaultConfig(
+            fog_outage_rate=0.3, fog_failover=True)),
+         dict(delta_pipeline_partial=80, delta_pipeline_apply=0)),
+    )
+    for name, over, want in fault_runs:
+        h, ms = run(name, 20, want, **over)
+        sums = {k: sum(h[k]) for k in ("fault_dispatched", "fault_completed",
+                                        "fault_terminal", "fault_lost", "fault_retries",
+                                        "fog_outages", "fault_failed_over",
+                                        "round_skipped")}
+        say("robustness", run=f"faults/{name}", rounds=20,
+            final_accuracy=h["final_accuracy"], mean_latency_ms=h["mean_latency_ms"],
+            ms_per_round=ms, card=repr(smi), conserved=True, **sums)
+        fc = over["faults"]
+        if fc.crash_rate > 0:
+            check(sums["fault_retries"] > 0, f"{name}: no retries")
+        if fc.fog_outage_rate > 0 and not fc.fog_failover:
+            check(sums["fault_lost"] > 0, f"{name}: an outage without failover lost nothing")
+        if fc.fog_failover:
+            check(sums["fault_lost"] == 0 and sums["fault_failed_over"] > 0,
+                  f"{name}: failover lost {sums['fault_lost']}, rerouted "
+                  f"{sums['fault_failed_over']}")
+
+    # Below quorum every round is skipped and the model carries over bitwise.
+    sim = sim_mod.FedFogSimulator(sim_mod.SimulatorConfig(
+        rounds=3, use_pallas_agg=True,
+        faults=FaultConfig(crash_rate=1.0, quorum_frac=0.5)), device="cuda")
+    before = [{k: v.clone() for k, v in layer.items()} for layer in sim.params]
+    zero_counts()
+    h = sim.run_scanned()
+    ln = read_counts()
+    expect_launches(ln, **none, delta_pipeline_apply=3, delta_pipeline_partial=0,
+                    robust_kernel=0)
+    for k, v in ln.items():
+        totals[k] += v
+    check_conservation(h, "quorum")
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(before, sim.params) for k in a)
+    check(same, "a skipped round changed the parameters")
+    check(all(s == float(d > 0) for s, d in zip(h["round_skipped"], h["fault_dispatched"]))
+          and sum(h["fault_dispatched"]) > 0, "a dispatching round was not skipped")
+    say("robustness", run="faults/quorum_skip", rounds=3, params_bitwise_equal=same,
+        round_skipped=h["round_skipped"], fault_dispatched=h["fault_dispatched"])
+
+    # No new host synchronisation: the same 3-round dense run with and
+    # without faults and an attack, each counted after an identical
+    # warm-up run (launches outside the counted runs).
+    def syncs(**over):
+        cfg = sim_mod.SimulatorConfig(rounds=3, use_pallas_agg=True, **over)
+        sim_mod.FedFogSimulator(cfg, device="cuda").run_scanned()
+        sim = sim_mod.FedFogSimulator(cfg, device="cuda")
+        torch.cuda.synchronize()
+        return count_syncs(torch, sim.run_scanned)
+
+    # The first window of a process reports one synchronisation that no
+    # later window does; open it on a single copy before the two counts.
+    first = count_syncs(torch, lambda: torch.zeros(1, device="cuda").cpu())
+    plain_syncs = syncs()
+    faulted_syncs = syncs(faults=FaultConfig(crash_rate=0.5, max_retries=2),
+                          attack="noise", attack_fraction=0.20)
+    say("robustness", run="sync_count", rounds=3, plain=plain_syncs,
+        faults_and_noise_attack=faulted_syncs, first_window_one_copy=first)
+    check(plain_syncs == faulted_syncs,
+          f"host synchronisations: {faulted_syncs} with faults and an attack, "
+          f"{plain_syncs} without")
+
+    # A tap: its rows equal the history at rounds 0, 5, 10, 15, and the
+    # history equals the untapped run's bitwise.
+    h0, ms0 = run("untapped", 20, k3_only)
+    tracker = MemoryTracker()
+    tap = MetricTap(tracker, every=5)
+    h1, ms1 = run("tapped", 20, k3_only, tap=tap)
+    check(h1 == h0, "the tapped history differs from the untapped one")
+    check([r["step"] for r in tracker.rows] == [0, 5, 10, 15], "tap rows at the wrong steps")
+    for row in tracker.rows:
+        for k, v in row.items():
+            if k not in ("event", "step"):
+                check(v == h1[k][row["step"]], f"tap row {row['step']} {k}: {v}")
+    check(len(tracker.summaries) == 1, "no tap summary")
+    say("robustness", run="tap", rounds=20, every=5, rows=len(tracker.rows),
+        ms_per_round_untapped=ms0, ms_per_round_tapped=ms1, card=repr(smi))
+    return totals
 
 
 def main() -> int:
@@ -1562,7 +1876,8 @@ def main() -> int:
     k1_launches = 0
     run_slice(torch, sim_mod, 1)  # warm-up: cuBLAS handles, allocator
     hist, launches, _, seconds, peak = run_slice(torch, sim_mod, 20)
-    expect_launches(launches, delta_pipeline_apply=20, delta_pipeline_partial=0)
+    expect_launches(launches, delta_pipeline_apply=20, delta_pipeline_partial=0,
+                    robust_kernel=0)
     k1_launches += launches["fedavg_apply"]
     kernels["delta_sq_norms"]["launches"] = launches["delta_sq_norms"]
     kernels["delta_pipeline_apply"]["launches"] = launches["delta_pipeline_apply"]
@@ -1576,9 +1891,10 @@ def main() -> int:
     check(acc[-1] >= 0.85, f"final accuracy {acc[-1]} < 0.85")
     for agg in ("median", "trimmed"):
         h, ln, _, sec, pk = run_slice(torch, sim_mod, 3, aggregator=agg)
-        expect_launches(ln, delta_pipeline_apply=3)
+        expect_launches(ln, delta_pipeline_apply=3, robust_kernel=3)
         k1_launches += ln["fedavg_apply"]
         say("slice", aggregator=agg, rounds=3, k3_launches=ln["delta_pipeline_apply"],
+            robust_kernel_launches=ln["robust_kernel"],
             ms_per_round=sec / 3 * 1e3, accuracy=[round(a, 4) for a in h["accuracy"]])
 
     run_slice(torch, sim_mod, 1, **POP_FOG)  # warm-up of the population path
@@ -1609,6 +1925,16 @@ def main() -> int:
         k1_launches += ln["fedavg_apply"]
         say("slice", path=repr(name), rounds=3, launches=ln, init_s=ini,
             ms_per_round=sec / 3 * 1e3, accuracy=[round(a, 4) for a in h["accuracy"]])
+
+    # the robustness path: attacks, HAR, faults, the quorum carry-over, the
+    # host synchronisations and a tap
+    t0 = time.perf_counter()
+    rob = phase_robustness(torch, sim_mod, smi)
+    say("robustness", phase_s=time.perf_counter() - t0)
+    k1_launches += rob["fedavg_apply"]
+    kernels["delta_pipeline_apply"]["robustness_launches"] = rob["delta_pipeline_apply"]
+    kernels["delta_pipeline_apply"]["robust_kernel_launches"] = rob["robust_kernel"]
+    kernels["delta_pipeline_partial"]["robustness_launches"] = rob["delta_pipeline_partial"]
 
     # the serving slices: llama (K5 per admission, K7 per decode step), then
     # rwkv6 (K6 per layer of every admission)

@@ -23,6 +23,12 @@ def static_on(x) -> bool:
     return x is not None and bool(x > 0)
 
 
+def static_any(*xs) -> bool:
+    """``static_on`` over several gate scalars: True iff ANY is active
+    (the single gate of a composite subsystem such as the fault layer)."""
+    return any(static_on(x) for x in xs)
+
+
 @dataclasses.dataclass(frozen=True)
 class ClientTelemetry:
     """Raw per-client resource readings, each shape ``(N,)`` in [0, 1]:

@@ -43,12 +43,12 @@ def _templates(cfg: EmnistLikeConfig, draws) -> torch.Tensor:
     return torch.tanh(up * 2.0)
 
 
-def _drift_epoch(cfg: EmnistLikeConfig, draws, n: int, round_idx, ids=None):
+def _drift_epoch(cfg, draws, n: int, round_idx, ids=None, site="drift.flags"):
     """(epoch, flags): the drift epoch of ``round_idx`` (an int, or an (n,)
     tensor for per-client rounds) and the (n,) bool mask of clients
-    drifted in it. A client's effective epoch is ``epoch`` where flagged,
-    else 0 (undrifted). ``flags`` is None when no client can be drifted
-    (drift off, or an int round in epoch 0)."""
+    drifted in it, drawn from ``site``. A client's effective epoch is
+    ``epoch`` where flagged, else 0 (undrifted). ``flags`` is None when no
+    client can be drifted (drift off, or an int round in epoch 0)."""
     if not cfg.drift_period:
         return 0, None
     if isinstance(round_idx, torch.Tensor):
@@ -59,21 +59,21 @@ def _drift_epoch(cfg: EmnistLikeConfig, draws, n: int, round_idx, ids=None):
         if epoch == 0:
             return 0, None
     return epoch, draws.bernoulli(
-        "drift.flags", cfg.drift_fraction, (n,), epoch=epoch, ids=ids
+        site, cfg.drift_fraction, (n,), epoch=epoch, ids=ids
     )
 
 
-def _effective_epoch(cfg, draws, n, round_idx, ids):
+def _effective_epoch(cfg, draws, n, round_idx, ids, site="drift.flags"):
     """(n,) int64 effective drift epochs, or None when none can be > 0."""
-    epoch, flags = _drift_epoch(cfg, draws, n, round_idx, ids)
+    epoch, flags = _drift_epoch(cfg, draws, n, round_idx, ids, site)
     if flags is None:
         return None
     return torch.where(flags, epoch, 0)
 
 
-def _prior(cfg, draws, n, eff, ids):
+def _prior(cfg, draws, n, eff, ids, site="prior"):
     return draws.dirichlet(
-        "prior", cfg.dirichlet_alpha, (n, cfg.num_classes), ids=ids,
+        site, cfg.dirichlet_alpha, (n, cfg.num_classes), ids=ids,
         epoch=0 if eff is None else eff,
     )
 

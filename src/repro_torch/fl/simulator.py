@@ -1,10 +1,12 @@
 """Paper-scale FedFog simulator, synchronous mode (port of
 ``repro/fl/simulator.py``).
 
-N edge clients train a small MLP on the EMNIST-like task under the full
-scheduler (Eqs. 1-12), the §IV.F latency / energy model and drift
-injection. All N clients are batched: their weights are stacked as
-(N, in, out) and trained with ``torch.bmm``.
+N edge clients train a small MLP on the EMNIST-like or HAR-like task
+under the full scheduler (Eqs. 1-12), the §IV.F latency / energy model,
+drift injection, the §IV.D attacks and, with ``faults``, fault injection
+and recovery (``sim.faults``: retries, deadline, quorum, fog outages).
+All N clients are batched: their weights are stacked as (N, in, out) and
+trained with ``torch.bmm``.
 
 With ``population`` M > N the (M,) registries (telemetry, profiles,
 scheduler rows, data sizes, attacker flags) stay on the device and each
@@ -22,7 +24,9 @@ Two engines share ONE round function (``_round``):
 
 The round reads nothing back from the device (no ``.item()``, no
 ``.cpu()``) and keeps static shapes: participation is a mask over the
-fixed client registry, never a gather.
+fixed client registry, never a gather. A ``MetricTap`` (``obs.tap``)
+streams decimated rows out of either engine; it reads the metrics and
+changes nothing.
 
 With ``use_pallas_agg=True`` the server side (Eq. 6 weighting or the
 median / trimmed selection, DP noise, apply) runs as the fused
@@ -30,9 +34,9 @@ delta-pipeline kernel on CUDA tensors (``kernels.delta_pipeline``: K3,
 or one K4 per fog); on CPU tensors the same entry points run their plain
 versions.
 
-Random draws come from a draw provider (``repro_torch.random``); the
-configurations the port does not run yet raise ``NotImplementedError``
-naming the ROADMAP item that will port them.
+Random draws come from a draw provider (``repro_torch.random``);
+``aot_scanned`` / ``run_scanned_with``, not ported yet, raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from repro_torch.core.types import (
     init_scheduler_state,
     static_on,
 )
-from repro_torch.data import emnist_like
+from repro_torch.data import emnist_like, har_like
 from repro_torch.data.telemetry import (
     TelemetryConfig,
     init_telemetry,
@@ -62,6 +66,7 @@ from repro_torch.data.telemetry import (
     step_telemetry,
 )
 from repro_torch.device import resolve_device
+from repro_torch.fl import attacks as attacks_mod
 from repro_torch.fl import fog as fog_mod
 from repro_torch.fl.compression import apply_compression, wire_bytes_per_param
 from repro_torch.fl.fuse import (
@@ -70,10 +75,11 @@ from repro_torch.fl.fuse import (
     fused_gaussian_noise,
     stacked_leaf_sizes,
 )
-from repro_torch.obs.history import finalize_history
+from repro_torch.obs.history import finalize_history, summary_metrics
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.random import TorchDraws
 from repro_torch.sim.des import FaasSimConfig, RoundCostModel
+from repro_torch.sim.faults import config as faults_config
 from repro_torch.sim.faults import inject as faults_inject
 
 _TODO = "not ported yet: see ROADMAP.md, queue 1, item 7 ({})"
@@ -161,25 +167,26 @@ class SimulatorConfig:
     seed: int = 0
 
     def data_cfg(self):
-        if self.task != "emnist":
-            raise NotImplementedError(_TODO.format(f"task={self.task!r}"))
-        return emnist_like.EmnistLikeConfig(
-            drift_period=self.drift_period, seed=self.seed
-        )
+        if self.task == "emnist":
+            return emnist_like.EmnistLikeConfig(
+                drift_period=self.drift_period, seed=self.seed
+            )
+        return har_like.HarLikeConfig(drift_period=self.drift_period, seed=self.seed)
 
     def dims(self):
-        if self.task != "emnist":
-            raise NotImplementedError(_TODO.format(f"task={self.task!r}"))
-        return 28 * 28, 62
+        if self.task == "emnist":
+            return 28 * 28, 62
+        return har_like.WINDOW * har_like.CHANNELS, har_like.NUM_CLASSES
 
 
-def _check_supported(cfg: SimulatorConfig, tap) -> None:
-    if cfg.attack not in ("none", "label_flip"):
-        raise NotImplementedError(_TODO.format(f"attack={cfg.attack!r}"))
-    if cfg.faults is not None:
-        raise NotImplementedError(_TODO.format("faults"))
-    if tap is not None:
-        raise NotImplementedError(_TODO.format("metric taps"))
+_ATTACKS = ("none", "label_flip", "noise", "model_replacement", "dropout")
+
+
+def _check_supported(cfg: SimulatorConfig) -> None:
+    if cfg.task not in ("emnist", "har"):
+        raise ValueError(f"unknown task {cfg.task!r}")
+    if cfg.attack not in _ATTACKS:
+        raise ValueError(f"unknown attack {cfg.attack!r}")
     if cfg.aggregator not in ("fedavg", "median", "trimmed"):
         raise ValueError(f"unknown aggregator {cfg.aggregator!r}")
 
@@ -192,9 +199,13 @@ class FedFogSimulator:
         """``device`` defaults to CUDA (raises without one); pass "cpu"
         to run on the CPU. ``draws`` is the draw provider, by default the
         production :class:`repro_torch.random.TorchDraws` seeded from
-        ``cfg.seed``. ``defer_state`` skips the eager state build."""
-        _check_supported(cfg, tap)
+        ``cfg.seed``. ``defer_state`` skips the eager state build. ``tap``
+        (a :class:`repro_torch.obs.MetricTap`) streams decimated rows out
+        of ``run()`` and ``run_scanned()``; None or a disabled tap adds
+        nothing to either."""
+        _check_supported(cfg)
         self.cfg = cfg
+        self.tap = tap if (tap is not None and tap.enabled) else None
         # Population / cohort split: the registries live at M, all
         # model-sized work at the cohort size C = num_clients. Dense mode
         # (population None or C) is the flat round, unchanged.
@@ -206,6 +217,10 @@ class FedFogSimulator:
                 f"num_clients={cfg.num_clients}"
             )
         fog_mod.validate_fog_config(cfg.fog_nodes, cfg.num_clients, cfg.aggregator)
+        # ONE gate for the whole fault layer: off, the round is unchanged.
+        self._faults_on = faults_config.active(cfg.faults)
+        if cfg.faults is not None:
+            faults_config.validate(cfg.faults)
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else TorchDraws(cfg.seed, self.device)
         self.data_cfg = cfg.data_cfg()
@@ -232,7 +247,14 @@ class FedFogSimulator:
         # with the JAX package depends on them).
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self._templates = emnist_like._templates(self.data_cfg, self.draws)
+        # The task's data module and class constants: EMNIST's templates,
+        # HAR's per-class signals.
+        if cfg.task == "emnist":
+            self._data = emnist_like
+            self._task_consts = emnist_like._templates(self.data_cfg, self.draws)
+        else:
+            self._data = har_like
+            self._task_consts = har_like._class_params(self.data_cfg, self.draws)
         self.env = self.params = self.sched_state = self.telemetry = None
         if not defer_state:
             self._ensure_state()
@@ -296,7 +318,7 @@ class FedFogSimulator:
     def _histograms(self, data_cfg, round_idx, ids=None):
         """(C, K) histograms of the dense registry or of cohort ``ids``;
         ``round_idx`` an int or, per client, a (C,) tensor."""
-        return emnist_like.client_histogram(
+        return self._data.client_histogram(
             data_cfg, self.draws, self.cfg.num_clients, round_idx, ids=ids
         )
 
@@ -317,16 +339,17 @@ class FedFogSimulator:
     def _local_deltas(self, data_cfg, params, round_idx: int, mask, malicious,
                       ids=None):
         """E local epochs of SGD on every client at once (Eq. 5), then
-        clip and compression. Returns ``(deltas, mask)``: deltas is the
-        params tree with a leading client axis. ``ids`` are the cohort's
+        clip, attack and compression. Returns ``(deltas, mask)``: deltas
+        is the params tree with a leading client axis; ``mask`` loses the
+        attackers under the dropout attack. ``ids`` are the cohort's
         client ids in population mode."""
         cfg, n = self.cfg, self.cfg.num_clients
         e, b = cfg.local_epochs, cfg.local_batch
-        x, y = emnist_like.client_batch(
-            data_cfg, self.draws, n, round_idx, b * e, self._templates, ids=ids
+        x, y = self._data.client_batch(
+            data_cfg, self.draws, n, round_idx, b * e, self._task_consts, ids=ids
         )
         if cfg.attack == "label_flip":
-            y = torch.where(malicious[:, None], (self.num_classes - 1) - y, y)
+            y = attacks_mod.flip_labels(y, malicious, self.num_classes)
         xs = x.reshape(n, e, b, -1)
         ys = y.reshape(n, e, b)
         start = tree.map(lambda p: p.expand((n,) + tuple(p.shape)), params)
@@ -343,6 +366,13 @@ class FedFogSimulator:
         deltas = tree.map(lambda a, s: a - s, cur, start)
         if cfg.clip_norm > 0:
             deltas, _ = clip_by_global_norm(deltas, cfg.clip_norm, per_client=True)
+        if cfg.attack not in ("none", "label_flip"):
+            deltas = attacks_mod.corrupt_deltas(
+                deltas, malicious & mask, cfg.attack, self.draws, round=round_idx,
+                noise_scale=cfg.attack_noise_scale,
+                replacement_scale=cfg.attack_replacement_scale,
+            )
+            mask = attacks_mod.dropout_mask(mask, malicious, cfg.attack)
         deltas = apply_compression(deltas, cfg.compression)
         return deltas, mask
 
@@ -355,9 +385,8 @@ class FedFogSimulator:
 
     def _eval_accuracy(self, data_cfg, params, round_idx: int):
         """Held-out accuracy on a 512-sample eval batch."""
-        x, y = emnist_like.eval_batch(
-            data_cfg, self.draws, round_idx, 512, self._templates
-        )
+        x, y = self._data.eval_batch(data_cfg, self.draws, round_idx, 512,
+                                     self._task_consts)
         logits = mlp_apply(params, x)
         return torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
 
@@ -412,6 +441,24 @@ class FedFogSimulator:
                 round=round_idx,
             )
         return tree.map(lambda p, a: p + cfg.server_lr * a, params, agg)
+
+    # ------------------------------------------------------------------ #
+    def _plan_faults(self, round_idx: int, mask, warm, deltas, costs):
+        """Realize one round's faults (``sim.faults.inject``) from the
+        ``faults.*`` sites. Returns ``(plan, deltas)`` with the corrupted
+        payloads' noise already added (the noise attack's arithmetic from
+        the ``faults.noise`` site, accounted as a fault)."""
+        fc = self.cfg.faults
+        plan = faults_inject.plan_round(
+            fc, self.draws, mask, ~warm, costs.per_client_ms,
+            fog_nodes=self.cfg.fog_nodes, round=round_idx,
+        )
+        if static_on(fc.corrupt_rate):  # else no payload is corrupted
+            deltas = attacks_mod.corrupt_deltas(
+                deltas, plan.corrupt, "noise", self.draws, round=round_idx,
+                site="faults.noise", noise_scale=fc.corrupt_scale,
+            )
+        return plan, deltas
 
     # ------------------------------------------------------------------ #
     def _gather_cohort(self, env, sched_state, telemetry, data_cfg, round_idx):
@@ -482,12 +529,25 @@ class FedFogSimulator:
                 else "fogfaas",
             )
             counters = faults_inject.zero_counters(self.device)
-            energy_j = costs.energy_j
+            agg_mask, energy_j, round_ms = mask, costs.energy_j, costs.round_ms
+            skip = None
+            if self._faults_on:
+                plan, deltas = self._plan_faults(round_idx, mask, warm, deltas, costs)
+                agg_mask = plan.arrived  # Eq. 6 reweights over the arrivals
+                energy_j = costs.energy_j * plan.attempts  # retries repay
+                round_ms = plan.round_ms
+                skip, counters = plan.skip, plan.counters
 
         with _phase("server"):
             new_params = self._apply_deltas(
-                params, deltas, mask, data_sizes, round_idx
+                params, deltas, agg_mask, data_sizes, round_idx
             )
+            if skip is not None:
+                # Below quorum the round is skipped: the model carries over
+                # bitwise (the discarded aggregate is never selected).
+                new_params = tree.map(
+                    lambda p, q: torch.where(skip, p, q), params, new_params
+                )
         with _phase("telemetry"):
             new_sched = account_energy(decision.new_state, energy_j, cfg.scheduler)
             new_tel = step_telemetry(
@@ -505,7 +565,7 @@ class FedFogSimulator:
         metrics = {
             "accuracy": acc,
             "num_selected": torch.sum(mask.to(torch.int32)),
-            "round_latency_ms": costs.round_ms,
+            "round_latency_ms": round_ms,
             "orchestration_ms": costs.orchestration_ms,
             "energy_j": torch.sum(energy_j),
             "cold_starts": costs.cold_starts,
@@ -517,6 +577,14 @@ class FedFogSimulator:
         return new_params, new_sched, new_tel, metrics
 
     # ------------------------------------------------------------------ #
+    def _finalize(self, history: dict[str, Any], rounds: int) -> dict[str, Any]:
+        """Shared summary schema (``obs.history``), and the tap's tracker
+        summary."""
+        finalize_history(history, rounds=rounds)
+        if self.tap is not None:
+            self.tap.tracker.log_summary({**self.tap.const, **summary_metrics(history)})
+        return history
+
     def run(self, rounds: int | None = None) -> dict[str, Any]:
         """Per-round loop (debug/streaming path): one metrics transfer to
         the host per round."""
@@ -527,10 +595,13 @@ class FedFogSimulator:
         for r in range(rounds):
             params, sched, tel, metrics = self._round(
                 self.env, params, sched, tel, r, in_place=True)
-            for name, v in metrics.items():
-                history.setdefault(name, []).append(float(v))
+            row = {name: float(v) for name, v in metrics.items()}
+            for name, v in row.items():
+                history.setdefault(name, []).append(v)
+            if self.tap is not None:
+                self.tap.host_log(row, r)  # the scanned tap's rows, host-side
         self.params, self.sched_state, self.telemetry = params, sched, tel
-        return finalize_history(history, rounds=rounds)
+        return self._finalize(history, rounds)
 
     def run_scanned(self, rounds: int | None = None) -> dict[str, Any]:
         """All rounds with the per-round metrics stacked on the device and
@@ -544,6 +615,8 @@ class FedFogSimulator:
             params, sched, tel, metrics = self._round(
                 self.env, params, sched, tel, r, in_place=True)
             per_round.append(metrics)
+            if self.tap is not None:
+                self.tap.emit(metrics, r)  # decides on the host; no copy unless due
         self.params, self.sched_state, self.telemetry = params, sched, tel
         names = list(per_round[0]) if per_round else []
         stacked = torch.stack(
@@ -551,7 +624,7 @@ class FedFogSimulator:
         ) if per_round else torch.zeros((0, 0))
         host = stacked.cpu().tolist()  # the single device -> host transfer
         history = {k: [row[i] for row in host] for i, k in enumerate(names)}
-        return finalize_history(history, rounds=rounds)
+        return self._finalize(history, rounds)
 
     def aot_scanned(self, rounds: int | None = None):
         raise NotImplementedError(_TODO.format("aot_scanned / run_scanned_with"))

@@ -723,6 +723,9 @@ int launch_streaming(const Args<T>& a, int blocks, int tile_cols, int rows, int 
 
 }  // namespace
 
+// robust_kernel launches the card accepted, counted where they are made.
+static long long g_robust_launches = 0;
+
 extern "C" {
 
 // Returns 0 on success, a cudaError_t after a refused launch, or -1 for
@@ -762,8 +765,12 @@ int fedfog_delta_pipeline(const float* upd, const float* base, const float* wn,
   } else {
     robust_kernel<256><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_robust_launches;
+  return static_cast<int>(e);
 }
+
+long long fedfog_robust_launches() { return g_robust_launches; }
 
 // K4: out (P,) = sum over the C fog-local clients of dm[i] * T(upd[i, :]).
 int fedfog_delta_pipeline_partial(const float* upd, const float* dm,

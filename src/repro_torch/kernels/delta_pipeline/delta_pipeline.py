@@ -21,7 +21,9 @@ contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream and raises if the launch is refused. Launches are counted
 in plain integer attributes, ``delta_sq_norms_cuda.launches`` (K2),
 ``launch_pipeline.launches`` (K3) and ``launch_partial.launches`` (K4),
-which grow by one per launch.
+which grow by one per launch. ``launch_pipeline.robust_launches`` counts
+the K3 launches that went to ``robust_kernel`` (median / trimmed), as the
+C entry reports them.
 ``ops.py`` sends CPU tensors to the plain versions in ``ref.py`` instead.
 """
 from __future__ import annotations
@@ -168,6 +170,8 @@ def library():
         [_P] * 11 + [_I, _I, _LL, _F, _F, _I, _I, _I] + [_I] * 5 + [_P]
     )
     kl.lib.fedfog_delta_pipeline.restype = _I
+    kl.lib.fedfog_robust_launches.argtypes = []
+    kl.lib.fedfog_robust_launches.restype = _LL
     kl.lib.fedfog_delta_pipeline_partial.argtypes = (
         [_P] * 6 + [_I, _I, _LL, _I] + [_I] * 5 + [_P]
     )
@@ -398,6 +402,7 @@ def launch_pipeline(
     c, p = updates.shape
     n_leaves = tab.shape[1] if tab is not None else 0
     lib = library().lib
+    robust_before = lib.fedfog_robust_launches()
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         rc = lib.fedfog_delta_pipeline(
@@ -410,9 +415,11 @@ def launch_pipeline(
         )
     _raise_on(rc, "delta_pipeline_apply")
     launch_pipeline.launches += 1
+    launch_pipeline.robust_launches += lib.fedfog_robust_launches() - robust_before
 
 
 launch_pipeline.launches = 0
+launch_pipeline.robust_launches = 0
 
 
 def delta_pipeline_partial_cuda(

@@ -21,10 +21,12 @@ config, ``--scale full`` the assigned one on one device. Engines:
 
 ``--flash`` sets ``attn_impl="flash"``: prefill through K5. For rwkv6,
 which has no attention, ``--flash`` and ``--attn`` have no effect, as in
-the JAX launcher. The mesh
+the JAX launcher. ``--track SPEC --track-every K`` (SPEC ``jsonl:PATH``,
+``csv:PATH``, ``noop``, comma-separated to compose) streams one row per
+K decode steps of either engine through ``repro_torch.obs``. The mesh
 options of the JAX launcher (``--devices``, ``--multi-pod``,
 ``--reduced``) belong to the distributed path and raise until ROADMAP.md
-queue 1, item 11 ports it; ``--track`` waits for item 7(e).
+queue 1, item 11 ports it.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ def main(argv=None):
     ap.add_argument("--attn", default="dense", choices=["dense", "paged"])
     ap.add_argument("--policy", default="fifo", choices=["fifo", "edf"])
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--track", default=None)
+    ap.add_argument("--track", default=None,
+                    help="tracker spec, e.g. jsonl:/tmp/serve.jsonl")
     ap.add_argument("--track-every", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -66,9 +69,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--devices, --multi-pod and --reduced drive the distributed mesh path, "
             "not ported yet: ROADMAP.md queue 1, item 11")
-    if args.track:
-        raise NotImplementedError(
-            "--track needs the metric taps, not ported yet: ROADMAP.md queue 1, item 7(e)")
 
     import torch
 
@@ -85,8 +85,23 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     params = model.init(gen)
 
-    if args.engine == "continuous":
-        return _run_continuous(args, cfg, model, params, device)
+    tap = None
+    if args.track:
+        from repro_torch.obs import MetricTap, tracker_from_spec
+
+        tap = MetricTap(tracker_from_spec(args.track), every=args.track_every,
+                        const={"arch": cfg.name}, channel="serve")
+    try:
+        if args.engine == "continuous":
+            return _run_continuous(args, cfg, model, params, device, tap)
+        return _run_static(args, cfg, model, params, device, tap)
+    finally:
+        if tap is not None:
+            tap.tracker.finish()
+
+
+def _run_static(args, cfg, model, params, device, tap):
+    import torch
 
     cache_len = args.prompt_len + args.gen
     g = torch.Generator(device=device)
@@ -107,6 +122,8 @@ def main(argv=None):
             logits, cache = model.decode_step(params, cache, toks)
             toks = torch.argmax(logits[:, -1], dim=-1)[:, None]
             out[:, i] = toks[:, 0].int()
+            if tap is not None:
+                tap.host_log({"step": i, "batch": args.batch}, step=i)
         out = out.cpu()  # the one device -> host read
         t_decode = time.perf_counter() - t0
     print(f"arch={cfg.name} device={device} prefill={t_prefill * 1e3:.1f}ms "
@@ -115,7 +132,7 @@ def main(argv=None):
     return out
 
 
-def _run_continuous(args, cfg, model, params, device):
+def _run_continuous(args, cfg, model, params, device, tap):
     from repro_torch.random import TorchDraws
     from repro_torch.serve import ContinuousBatchingEngine, EngineConfig, TraceConfig, make_trace
 
@@ -123,7 +140,7 @@ def _run_continuous(args, cfg, model, params, device):
     ecfg = EngineConfig(slots=slots, page_size=args.page_size, prompt_len=args.prompt_len,
                         max_gen=args.gen, max_requests=max(args.requests, 1),
                         attn=args.attn, policy=args.policy)
-    engine = ContinuousBatchingEngine(model, params, ecfg)
+    engine = ContinuousBatchingEngine(model, params, ecfg, tap=tap)
     trace = make_trace(
         TorchDraws(args.seed + 1, "cpu"),
         TraceConfig(n_requests=args.requests, rate_per_s=args.rate, slo_ms=args.slo_ms,

@@ -27,6 +27,22 @@ site plus the context that keys it (``round``, ``epoch``, ``index``):
   ``telemetry.ar``              (2, C) AR(1) innovations (cpu, mem)
   ``dp``                        (P,) DP noise normals, leaf by leaf
   ``rcs.perm``                  (C,) permutation of the RCS baseline
+  ``attack``                    (C, P) normals of the noise and
+                                model-replacement attacks, leaf by leaf
+  ``har.freqs|amps|phases``     (6, 9) uniforms of the HAR class signals
+  ``har.prior``                 (C, 6) HAR label priors of ``ids`` at
+                                (per-client) ``epoch``
+  ``har.drift.flags``           (C,) HAR drift flags of ``ids``
+  ``har.gain`` / ``har.phase``  (C, 9) normals of the per-client channel
+                                gain and phase offset of ``ids``
+  ``faults.partition``          () uniform: the round's partition gate
+  ``faults.partition_frac``     (C,) uniforms: who the partition cuts off
+  ``faults.timeout|crash|drop`` (C,) uniforms of attempt ``index`` of
+                                ``attempts``
+  ``faults.fog``                (F,) uniforms of the fog outages
+  ``faults.corrupt``            (C,) uniforms of the corrupted payloads
+  ``faults.noise``              (C, P) normals of the corruption, leaf by
+                                leaf
   ============================  ==========================================
 
 Production (:class:`TorchDraws`) seeds a fresh ``torch.Generator`` on the
@@ -34,9 +50,10 @@ simulator's device from a hash of ``(seed, site, context)``: every block
 is a pure function of its key, so ``run()`` and ``run_scanned()`` replay
 each other.
 
-Three sites are keyed per CLIENT rather than per block: ``prior``,
-``drift.flags`` (both by client id and drift epoch) and ``drift.perm``
-(by epoch). A client's label prior must be the same in every round of
+Some sites are keyed per CLIENT rather than per block: ``prior``,
+``drift.flags`` (both by client id and drift epoch), ``drift.perm`` (by
+epoch) and their HAR counterparts ``har.prior``, ``har.drift.flags``,
+``har.gain`` and ``har.phase`` (by client id). A client's label prior must be the same in every round of
 an epoch and in whichever cohort it lands (the Eq. 2 drift gate compares
 it with itself), and in population mode the cohort is 64 ids out of a
 million. A dense (M, K) block per epoch would cost 62 M gamma draws, so
@@ -156,6 +173,15 @@ class TorchDraws:
         e = torch.as_tensor(epoch, dtype=torch.int64, device=self.device)
         perm = torch.argsort(self._words(site, e.reshape(-1), 0, n), dim=1, stable=True)
         return perm.reshape(tuple(e.shape) + (n,))
+
+    def client_normal(self, site: str, shape, *, ids=None) -> torch.Tensor:
+        """(C, k) standard normals of clients ``ids`` (default
+        ``arange(C)``), counter-based: row c depends only on (seed, site,
+        ``ids[c]``). Box-Muller from the client's words."""
+        n, k = shape
+        u = self._counter_uniform(site, self._ids(ids, n), 0, 2 * k)
+        return torch.sqrt(-2.0 * torch.log(u[:, :k])) * torch.cos(
+            (2.0 * math.pi) * u[:, k:])
 
     def bernoulli(self, site: str, p: float, shape, *, epoch, ids=None):
         """(C,) flags of clients ``ids`` (default ``arange(C)``) at ``epoch``

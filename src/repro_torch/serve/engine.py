@@ -113,10 +113,11 @@ class ContinuousBatchingEngine:
     def __init__(self, model: Model, params, cfg: EngineConfig = EngineConfig(),
                  cost: ServeCostModel = ServeCostModel(), runtime: Runtime = Runtime(),
                  tap=None):
-        if tap is not None:
-            raise NotImplementedError(
-                "metric taps are not ported yet: ROADMAP.md queue 1, item 7(e)")
+        """``tap`` (a :class:`repro_torch.obs.MetricTap`) receives one
+        decimated row per decode step from the host's counters; it adds
+        no device transfer."""
         self.model = model
+        self.tap = tap
         self.params = params
         self.cfg = cfg
         self.cost = cost
@@ -259,6 +260,18 @@ class ContinuousBatchingEngine:
             vclock += cost.decode_step_ms(fpt * n_active)
             energy += cost.step_energy_j(fpt * n_active, n_active)
             last_busy = vclock
+            if self.tap is not None:
+                self.tap.host_log(
+                    {
+                        "virtual_ms": vclock,
+                        "active_slots": n_active,
+                        "waiting": len(sched.waiting),
+                        "completed": sched.completed,
+                        "tokens_generated": tokens_generated,
+                        "energy_j": energy,
+                    },
+                    step=decode_steps,
+                )
             # 5. Advance live slots (device copies out of place); evict the
             # finished ones.
             step = ctrl["active"].long()

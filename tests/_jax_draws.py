@@ -9,11 +9,19 @@ the JAX package can be held against each other on identical data:
     (templates), ``+ 11`` / ``+ 12`` / ``+ 13`` (drift flags, Dirichlet
     priors, drift permutation), ``+ 30`` / ``+ 31`` (profiles, telemetry),
     ``+ 40`` / ``+ 41`` (data sizes, attacker placement);
+  * HAR: ``seed + 20`` (class signals, split 3), ``+ 21`` / ``+ 22``
+    (drift flags, Dirichlet priors), ``+ 23`` folded with the client id
+    (its channel gain; folded again with 1: its phase offset);
   * per round: ``PRNGKey(seed + 100)`` split once per round, then the
     6-way split ``(sel, data, attack, dp, tel, eval)`` and the population
     cohort's ``fold_in(k, 7)``; the client at cohort position ``i`` with
     id ``c`` draws its batch from ``split(k_data, n)[i]`` →
-    ``split(fold_in(., c))``.
+    ``split(fold_in(., c))``. The attacks' normals split ``attack`` once
+    per leaf;
+  * faults: ``fold_in(k, 8)`` split into ``(plan, noise)``; ``plan`` split
+    5 ways into ``(attempts, partition, partition_frac, fog, corrupt)``;
+    attempt ``a`` of ``A`` takes ``split(attempts, A)[a]``, split 3 ways
+    into ``(timeout, crash, drop)``; ``noise`` is split once per leaf.
 
 Every per-client draw takes ``ids``, the client ids of the rows, which
 default to ``arange(n)`` (the dense registry); the prior and the drift
@@ -62,22 +70,28 @@ def _client_labels(k_data, logits, n_draw, cids):
 
 @functools.partial(jax.jit, static_argnames=("n_draw", "dim"))
 def _client_noise(k_data, n_draw, dim, cids):
+    # threefry draws a flat block: (n_draw, dim) holds the same values as
+    # the package's (n_draw, 28, 28) or (n_draw, 128, 9), reshaped.
     def one(key, cid):
         _, k2 = jax.random.split(jax.random.fold_in(key, cid))
-        return jax.random.normal(k2, (n_draw, 28, 28)).reshape(n_draw, dim)
+        return jax.random.normal(k2, (n_draw, dim))
 
     return jax.vmap(one)(jax.random.split(k_data, cids.shape[0]), cids)
 
 
-@functools.partial(jax.jit, static_argnames=("k",))
-def _priors(seed, cids, epochs, alpha, k):
+@functools.partial(jax.jit, static_argnames=("k", "offset"))
+def _priors(seed, cids, epochs, alpha, k, offset):
     def one(c, e):
         key = jax.random.fold_in(
-            jax.random.fold_in(jax.random.PRNGKey(seed + 12), c), e
+            jax.random.fold_in(jax.random.PRNGKey(seed + offset), c), e
         )
         return jax.random.dirichlet(key, jnp.full((k,), alpha))
 
     return jax.vmap(one)(cids, epochs)
+
+
+_FAULT_PLAN = ("attempts", "partition", "partition_frac", "fog", "corrupt")
+_ATTEMPT_SITES = {"faults.timeout": 0, "faults.crash": 1, "faults.drop": 2}
 
 
 class JaxDraws:
@@ -95,7 +109,19 @@ class JaxDraws:
                 key, k = jax.random.split(key)
             self._rounds[r] = dict(zip(_ROUND_KEYS, jax.random.split(k, 6)))
             self._rounds[r]["cohort"] = jax.random.fold_in(k, 7)
+            k_plan, k_noise = jax.random.split(jax.random.fold_in(k, 8))
+            self._rounds[r]["faults.noise"] = k_noise
+            self._rounds[r].update(zip(
+                (f"faults.{x}" for x in _FAULT_PLAN), jax.random.split(k_plan, 5)))
         return self._rounds[r][name]
+
+    def _leafwise(self, key, shape, segments):
+        """(C, P) normals, one key of ``split(key, len(segments))`` per
+        leaf, each leaf's (C, size) block side by side."""
+        keys = jax.random.split(key, len(segments))
+        c = shape[0]
+        return _t(jnp.concatenate(
+            [jax.random.normal(k, (c, s)) for k, s in zip(keys, segments)], axis=1))
 
     def _init_key(self, offset: int, index: int | None = None, parts: int = 0):
         key = jax.random.PRNGKey(self.seed + offset)
@@ -122,8 +148,9 @@ class JaxDraws:
                                     _ids(ids, n)))
         if site == "eval.noise":
             _, k2 = jax.random.split(self.round_key(round, "eval"))
-            b, dim = shape
-            return _t(jax.random.normal(k2, (b, 28, 28)).reshape(b, dim))
+            return _t(jax.random.normal(k2, shape))
+        if site in ("attack", "faults.noise"):
+            return self._leafwise(self.round_key(round, site), shape, segments)
         if site == "telemetry.ar":
             k1, k2 = jax.random.split(self.round_key(round, "tel"))
             n = shape[1]
@@ -136,12 +163,32 @@ class JaxDraws:
             ))
         raise KeyError(site)
 
-    def uniform(self, site, shape, lo, hi, **ctx):
-        index = {"telemetry.init.cpu": 0, "telemetry.init.mem": 1,
-                 "telemetry.init.batt": 2}[site]
-        return _t(jax.random.uniform(
-            self._init_key(31, index, 4), tuple(shape), minval=lo, maxval=hi
-        ))
+    def uniform(self, site, shape, lo, hi, *, round=None, index=None,
+                attempts=None):
+        if site in _ATTEMPT_SITES:
+            key = jax.random.split(self.round_key(round, "faults.attempts"),
+                                   attempts)[index]
+            key = jax.random.split(key, 3)[_ATTEMPT_SITES[site]]
+        elif site.startswith("faults."):
+            key = self.round_key(round, site)
+        elif site.startswith("har."):
+            part = {"har.freqs": 0, "har.amps": 1, "har.phases": 2}[site]
+            key = self._init_key(20, part, 3)
+        else:
+            part = {"telemetry.init.cpu": 0, "telemetry.init.mem": 1,
+                    "telemetry.init.batt": 2}[site]
+            key = self._init_key(31, part, 4)
+        return _t(jax.random.uniform(key, tuple(shape), minval=lo, maxval=hi))
+
+    def client_normal(self, site, shape, *, ids=None):
+        n, k = shape
+        base = jax.random.PRNGKey(self.seed + 23)
+        keys = jax.vmap(lambda c: jax.random.fold_in(base, c))(_ids(ids, n))
+        if site == "har.phase":
+            keys = jax.vmap(lambda x: jax.random.fold_in(x, 1))(keys)
+        else:
+            assert site == "har.gain", site
+        return _t(jax.vmap(lambda x: jax.random.normal(x, (k,)))(keys))
 
     def randint(self, site, shape, high, *, round=None):
         if site == "profiles.class":
@@ -175,9 +222,9 @@ class JaxDraws:
         return _t(jax.random.permutation(key, n)).to(torch.int64)
 
     def bernoulli(self, site, p, shape, *, epoch, ids=None):
-        assert site == "drift.flags", site
         n = shape[0]
-        base = jax.random.PRNGKey(self.seed + 11)
+        base = jax.random.PRNGKey(self.seed + {"drift.flags": 11,
+                                               "har.drift.flags": 21}[site])
         flags = jax.vmap(
             lambda c, e: jax.random.bernoulli(
                 jax.random.fold_in(jax.random.fold_in(base, e), c), p)
@@ -185,9 +232,10 @@ class JaxDraws:
         return _t(flags)
 
     def dirichlet(self, site, alpha, shape, *, epoch, ids=None):
-        assert site == "prior", site
         n, k = shape
-        return _t(_priors(self.seed, _ids(ids, n), _per_client(epoch, n), alpha, k))
+        offset = {"prior": 12, "har.prior": 22}[site]
+        return _t(_priors(self.seed, _ids(ids, n), _per_client(epoch, n), alpha, k,
+                          offset))
 
     def categorical(self, site, logits, n, *, round, ids=None):
         assert site == "client_batch.labels", site

@@ -32,8 +32,25 @@ def _round(sim, state, r, **kw):
 
 @pytest.mark.parametrize("population,fog_nodes", [(256, 1), (256, 2), (None, 1)])
 def test_round_replays_and_leaves_its_inputs_unchanged(population, fog_nodes):
-    sim = FedFogSimulator(SimulatorConfig(population=population, fog_nodes=fog_nodes,
-                                          **SMALL), device="cpu")
+    _check_replay(SimulatorConfig(population=population, fog_nodes=fog_nodes, **SMALL))
+
+
+@pytest.mark.parametrize("population", [None, 256], ids=["dense", "population"])
+def test_faulted_attacked_har_round_replays_and_leaves_its_inputs_unchanged(population):
+    """The robustness path's round: HAR, the noise attack, and faults
+    with corruption, retries and fog outages at two fogs."""
+    from repro_torch.sim.faults import FaultConfig
+
+    fc = FaultConfig(crash_rate=0.3, max_retries=1, corrupt_rate=0.3,
+                     fog_outage_rate=0.5, quorum_frac=0.2)
+    _check_replay(SimulatorConfig(population=population, fog_nodes=2, task="har",
+                                  attack="noise", attack_fraction=0.25, faults=fc,
+                                  **SMALL))
+
+
+def _check_replay(cfg):
+    population = cfg.population
+    sim = FedFogSimulator(cfg, device="cpu")
     sim._ensure_state()
     state = (sim.params, sim.sched_state, sim.telemetry)
     before = (_snapshot(sim.sched_state), _snapshot(sim.telemetry))

@@ -141,20 +141,15 @@ def test_production_run_trains():
     assert h["accuracy"][-1] > h["accuracy"][0] + 0.1
 
 
-@pytest.mark.parametrize(
-    "override",
-    [dict(task="har"), dict(attack="noise", attack_fraction=0.2),
-     dict(faults=object())],
-    ids=["har", "attack", "faults"],
-)
-def test_unported_configurations_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("override", [dict(task="mnist"), dict(attack="sybil"),
+                                      dict(aggregator="krum")],
+                         ids=["task", "attack", "aggregator"])
+def test_unknown_configuration_values_raise(override):
+    with pytest.raises(ValueError, match="unknown"):
         FedFogSimulator(SimulatorConfig(**SMALL, **override), device="cpu")
 
 
 def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedFogSimulator(SimulatorConfig(**SMALL), device="cpu", tap=object())
     sim = FedFogSimulator(SimulatorConfig(**SMALL), device="cpu", defer_state=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.aot_scanned()
