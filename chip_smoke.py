@@ -11,8 +11,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 (seconds, and the -Xptxas -v register / shared-memory
                 report; the three instantiations of the streaming
                 fedavg_kernel of K1, K3 and K4 on a line each, and no
-                spills in any; K6's chunk size, window, grid and shared
-                memory at the prefill's shape, and the registers and
+                spills in any; the nine instantiations of K3's
+                robust_kernel (N2 from 1 to 64 in registers, 128 and 256
+                in shared memory), no spill in any and no stack in the
+                register ones;
+                K6's chunk size, window, grid and shared memory at the prefill's shape, and the registers and
                 spills of each of its instantiations);
   3. kernels  — K1 (fedavg_apply) held against its plain version at the
                 JAX package's FEDAVG_CASES shapes, the simulator's cohort
@@ -21,7 +24,16 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 client selected; K2 (delta_sq_norms) and K3 (delta_pipeline_apply) held
                 against their plain PyTorch versions on the card, at the
                 slice's shape (C=64, P=112,766 in the MLP's six leaves) and a
-                small ragged shape, over six gate sets; K4
+                small ragged shape, over six gate sets (the median
+                bitwise, torch.equal); K3's median / trimmed route
+                (robust_kernel) at C = 16, 24, 64, 100 and 256 over a
+                ragged P = 1,000 and at HAR's (64, 156,230), gates none /
+                clip / int8 / top-k / clip+int8, on finite deltas and with
+                one client's delta NaN and NaN entries in another's: the
+                median bitwise equal to its plain version on the inputs
+                the kernel reads (NaN where it has NaN), the trimmed mean
+                to the gates' tolerance, and with no client selected +inf
+                and the base exactly; K4
                 (delta_pipeline_partial) likewise at (C_local, P) = (16,
                 112,766), (64, 112,766) and a ragged (16, 1,000), gates none /
                 clip (with K2) / int8 / top-k; the streaming fedavg_kernel
@@ -101,8 +113,10 @@ Phases, one line of output each (any failure raises and exits non-zero):
                   dispatched = completed + terminal + lost in every round;
                   3 rounds below quorum leaving the parameters bitwise
                   unchanged, every dispatching round skipped; the host
-                  synchronisations of 3 rounds with faults and the noise
-                  attack equal to those without; a 20-round run tapped
+                  synchronisations of 3 dense rounds 1 (the final copy),
+                  with and without faults and the noise attack and under
+                  int8 and top-k compression, the population + fog count
+                  printed beside; a 20-round run tapped
                   every 5 rounds, its rows equal to the history and its
                   history equal to the untapped run's; ms/round of each
                   run printed beside the card's name and power limit;
@@ -144,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -156,6 +171,10 @@ ROOT = Path(__file__).resolve().parent
 # outside the tensor cores (both kernels do float32 FMAs on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# 32-bit min / max instructions: 64 a clock per SM against the 128 FMAs (256
+# FLOP) behind FP32_FLOP_PER_S (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0).
+MINMAX_PER_S = FP32_FLOP_PER_S / 4
 BF16_FLOP_PER_S = 989e12  # dense tensor-core rate; K5/K7 inputs are bf16
 # Six leaves of the 784-128-64-62 MLP in fused order ([b, w] per layer).
 SLICE_SEGS = (128, 784 * 128, 64, 128 * 64, 62, 64 * 62)
@@ -530,6 +549,126 @@ def fedavg_ptxas(log_text: str) -> list[dict]:
     return out
 
 
+def robust_ptxas(log_text: str) -> list[dict]:
+    """robust_kernel's instantiations in an `-Xptxas -v` report: N2 (the
+    column's padded length), where the column lives, registers, stack and
+    spills."""
+    import re
+
+    out = []
+    for entry in ptxas_entries(log_text, "robust_kernel"):
+        m = re.search(r"robust_kernelILi(\d+)ELb([01])E", entry.pop("mangled"))
+        out.append({"kernel": "robust_kernel", "N2": int(m.group(1)),
+                    "column": "shared" if m.group(2) == "1" else "registers", **entry})
+    return sorted(out, key=lambda e: e["N2"])
+
+
+# K3's robust route (robust_kernel): (name, C, segs) at a ragged P = 1,000
+# for every padded length from 16 to 256 (the shared-memory variant at C =
+# 100 and 256) and at HAR's (64, 156,230).
+HAR_SEGS = (128, 1152 * 128, 64, 128 * 64, 6, 64 * 6)
+# Compare-exchanges of robust_kernel's network (Batcher's odd-even merge
+# sort) over the 64 rows of the main paths' columns.
+ROBUST_NETWORK_PAIRS_64 = 543
+ROBUST_CASES = [(f"C {c}, P 1,000", c, K4_RAGGED_SEGS) for c in (16, 24, 64, 100, 256)]
+ROBUST_CASES.append(("HAR", 64, HAR_SEGS))
+ROBUST_GATES = [
+    ("none", lambda segs: {}),
+    ("clip", lambda segs: dict(clip_norm=1.5)),
+    ("int8", lambda segs: dict(compression="int8", seg_sizes=segs)),
+    ("topk", lambda segs: dict(compression="topk", topk_fraction=0.1, seg_sizes=segs)),
+    ("clip+int8", lambda segs: dict(clip_norm=1.5, compression="int8", seg_sizes=segs)),
+]
+
+
+def robust_plain(torch, dp, upd, base, mask, w, kw):
+    """The plain version of K3 on the inputs the kernel reads: with the clip
+    gate on, the deltas pre-scaled by the wrapper's clip scales (K2's
+    norms, which sum in another order than the plain version's), after
+    which the plain version's compression table equals the kernel's."""
+    from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+
+    if kw.get("clip_norm", 0.0) > 0:
+        pre = cu.gate_rows(upd, kw["clip_norm"], "none", 0.05, None)[0]
+        upd, kw = upd * pre[:, None], dict(kw, clip_norm=0.0)
+    return dp.delta_pipeline_ref(upd, base, mask, w, lr=0.7, **kw)
+
+
+def same_or_both_nan(torch, a, b) -> bool:
+    """Equal values (-0.0 == +0.0, as torch.equal) and NaN where the other
+    has NaN."""
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def nan_variant(torch, fx, c):
+    """``fx``'s deltas with client c // 2 selected and its whole delta NaN,
+    and every seventh entry of the next client's delta NaN."""
+    upd, mask = fx["upd"].clone(), fx["mask"].clone()
+    upd[c // 2] = float("nan")
+    upd[(c // 2 + 1) % c, ::7] = float("nan")
+    mask[c // 2] = True
+    return upd, mask
+
+
+def check_robust(torch, dp, dev) -> float:
+    """K3's median / trimmed route against its plain version at
+    ROBUST_CASES over ROBUST_GATES, on finite deltas and on deltas with NaN
+    (``nan_variant``: the network keeps every value and sorts NaN after
+    +inf, as the plain version's torch.sort does): the median bitwise
+    (torch.equal, so -0.0 == +0.0; NaN where the plain version has NaN),
+    the trimmed mean (trim 0.1, summed in another order) to ATOL +
+    RTOL·|step| where the plain version is finite and equal elsewhere; with
+    no client selected the median +inf and the trimmed mean the base,
+    exactly. Returns the trimmed route's max abs error."""
+    worst = 0.0
+    for i, (name, c, segs) in enumerate(ROBUST_CASES):
+        fx = make_inputs(torch, c, segs, 1500 + i, dev)
+        variants = (("finite", fx["upd"], fx["mask"]), ("nan", *nan_variant(torch, fx, c)))
+        for (vname, upd, mask), (gname, build) in itertools.product(variants, ROBUST_GATES):
+            kw = build(segs)
+            args = (upd, fx["base"], mask, fx["weights"])
+            med = dp.delta_pipeline_apply(*args, lr=0.7, aggregator="median", **kw)
+            med_ref = robust_plain(torch, dp, *args, dict(kw, aggregator="median"))
+            tri = dp.delta_pipeline_apply(*args, lr=0.7, aggregator="trimmed",
+                                          trim_fraction=0.1, **kw)
+            tri_ref = robust_plain(torch, dp, *args, dict(kw, aggregator="trimmed",
+                                                          trim_fraction=0.1))
+            torch.cuda.synchronize()
+            if vname == "finite":
+                check(bool(torch.isfinite(med).all() and torch.isfinite(tri).all()),
+                      f"robust {name} {gname}: non-finite output")
+                equal = torch.equal(med, med_ref)
+            else:
+                equal = same_or_both_nan(torch, med, med_ref)
+            fin = torch.isfinite(tri_ref)
+            d = (tri - tri_ref)[fin].abs()
+            err = float(d.max()) if d.numel() else 0.0
+            bad = ((tri - tri_ref).abs() > ATOL + RTOL * (tri_ref - fx["base"]).abs())[fin]
+            rest = same_or_both_nan(torch, tri[~fin], tri_ref[~fin])
+            say("kernels", kernel="delta_pipeline_apply", route="robust_kernel",
+                case=repr(name), deltas=vname, gates=gname, C=c, P=sum(segs),
+                median_equal=equal, trimmed_max_abs_err=err, atol=ATOL,
+                rtol=f"{RTOL} of |step|", nonfinite_plain=int((~fin).sum()),
+                nonfinite_equal=rest)
+            check(equal, f"robust median {name} {vname} {gname}: not its plain version")
+            check(not bool(bad.any()) and rest,
+                  f"robust trimmed {name} {vname} {gname}: max_abs_err {err}, "
+                  f"non-finite equal {rest}")
+            worst = max(worst, err)
+        none = torch.zeros_like(fx["mask"])
+        med = dp.delta_pipeline_apply(fx["upd"], fx["base"], none, fx["weights"], lr=0.7,
+                                      aggregator="median")
+        tri = dp.delta_pipeline_apply(fx["upd"], fx["base"], none, fx["weights"], lr=0.7,
+                                      aggregator="trimmed")
+        inf = bool((torch.isinf(med) & (med > 0)).all())
+        same = torch.equal(tri, fx["base"])
+        say("kernels", kernel="delta_pipeline_apply", route="robust_kernel",
+            case=repr(name), gates="no client selected", median_all_pos_inf=inf,
+            trimmed_equal_to_base=same)
+        check(inf and same, f"robust {name}: no client selected")
+    return worst
+
+
 def phase_kernels(torch, dp):
     """Phase 3: kernel vs plain version, then timing. Returns per-kernel
     dicts for the JSON line (launches filled in by the slice phase)."""
@@ -566,9 +705,11 @@ def phase_kernels(torch, dp):
                 bad = (o - r).abs() > ATOL + RTOL * (r - i).abs()
                 check(not bool(bad.any()),
                       f"delta_pipeline_apply {name} {shape_name}: max_abs_err {err}")
+            if name == "median":  # the sorted values are the plain version's
+                check(torch.equal(out, ref), f"median {shape_name}: not its plain version")
             say("kernels", kernel="delta_pipeline_apply", shape=shape_name, gates=name,
                 C=c, P=sum(segs), max_abs_err=err, max_abs_step=step, atol=ATOL,
-                rtol=f"{RTOL} of |step|")
+                rtol=f"{RTOL} of |step|", **({"equal": True} if name == "median" else {}))
             errs["delta_pipeline_apply"] = max(errs["delta_pipeline_apply"], err)
         # No client selected: the reference's index arithmetic gives a +inf
         # median and the unchanged base for the trimmed mean; both must
@@ -585,6 +726,8 @@ def phase_kernels(torch, dp):
 
     errs["delta_pipeline_partial"] = check_partial(torch, dp, dev)
     check_streaming_exact(torch, dp, fa, dev)
+    errs["delta_pipeline_apply"] = max(errs["delta_pipeline_apply"],
+                                       check_robust(torch, dp, dev))
 
     # ---- timing at the slice's shape (the main path's gates: plain Eq. 6)
     from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
@@ -704,8 +847,9 @@ def phase_kernels(torch, dp):
         "k1_lib": cuda_ms(lambda i: torch.addmv(bf_bufs[i % 8][1], bf_bufs[i % 8][0].t(),
                                                 bf_row16, out=outbf), 400),
     }
-    # K3's median / trimmed route (robust_kernel), once at the slice.
-    t_robust = {}
+    # K3's median / trimmed route (robust_kernel), once at the slice,
+    # beside its plain version.
+    t_robust, t_robust_plain = {}, {}
     for agg in ("median", "trimmed"):
         r_rows = [cu.pipeline_rows(b["upd"], b["mask"], b["weights"], None, 0.0, 0.1,
                                    clip_norm=0.0, compression="none", topk_fraction=0.05,
@@ -718,7 +862,10 @@ def phase_kernels(torch, dp):
                                compression="none", aggregator=agg,
                                server_optimizer="fedavg")
 
-        t_robust[agg] = cuda_ms(k3_robust, 20)
+        t_robust[agg] = cuda_ms(k3_robust, 200)
+        t_robust_plain[agg] = cuda_ms(lambda i, agg=agg: dp.delta_pipeline_ref(
+            bufs[i % 4]["upd"], bufs[i % 4]["base"], bufs[i % 4]["mask"],
+            bufs[i % 4]["weights"], lr=lr, aggregator=agg), 20)
 
     # Their library yardsticks at the same shape and masks, the boolean row
     # gather x[mask] (a host synchronisation per call) included:
@@ -798,9 +945,21 @@ def phase_kernels(torch, dp):
         plain_ms=t_bf["k1_plain"], library_ms=t_bf["k1_lib"],
         library="torch.addmv (bf16)", bound_ms=bound1bf, bytes=k1bf_bytes,
         share_of_bound=bound1bf / t_bf["k1"])
+    # The robust route reads the selected rows' deltas only (mean over the
+    # four timed buffers' masks), the base, the mask row and the (2,) count
+    # pair, and writes the output; its network does a min and a max per
+    # compare-exchange of every column.
+    n_sel = sum(int(b["mask"].sum()) for b in bufs) / len(bufs)
+    robust_bytes = 4 * (n_sel * p + p + p + c + 2)
+    robust_ops = 2 * ROBUST_NETWORK_PAIRS_64 * p
+    byr = (robust_bytes / HBM_BYTES_PER_S, robust_ops / MINMAX_PER_S)
+    bound_r = max(byr) * 1e3
     for agg, ms in t_robust.items():
         say("timing", kernel="delta_pipeline_apply", route="robust_kernel", aggregator=agg,
-            C=c, P=p, ms=ms, bound_ms=bound3, share_of_bound=bound3 / ms,
+            C=c, P=p, selected=n_sel, ms=ms, plain_ms=t_robust_plain[agg],
+            bound_ms=bound_r, bytes=robust_bytes, bytes_ms=byr[0] * 1e3,
+            bound_by="bytes" if byr[0] >= byr[1] else "operations",
+            network_ops=robust_ops, ops_ms=byr[1] * 1e3, share_of_bound=bound_r / ms,
             library_ms=t_robust_lib[agg],
             library="torch.median(x[mask], dim=0)" if agg == "median"
             else "torch.sort(x[mask], dim=0) + slice + mean")
@@ -844,7 +1003,10 @@ def phase_kernels(torch, dp):
          "plain_ms": t["k3_plain"], "bound_ms": bound3, "bound_by": bound_by3,
          "library_ms": t["k3_lib"], "median_ms": t_robust["median"],
          "trimmed_ms": t_robust["trimmed"], "median_library_ms": t_robust_lib["median"],
-         "trimmed_library_ms": t_robust_lib["trimmed"]},
+         "trimmed_library_ms": t_robust_lib["trimmed"],
+         "median_plain_ms": t_robust_plain["median"],
+         "trimmed_plain_ms": t_robust_plain["trimmed"], "robust_bound_ms": bound_r,
+         "robust_bound_by": "bytes" if byr[0] >= byr[1] else "operations"},
         {"name": "delta_pipeline_partial", "route": "cuda", "source": src,
          "replaces": f"{pallas}:536", "launches": None, "on_main_path": True,
          "max_abs_err": errs["delta_pipeline_partial"], "ms": t["k4"],
@@ -1755,9 +1917,12 @@ def phase_robustness(torch, sim_mod, smi) -> dict:
     say("robustness", run="faults/quorum_skip", rounds=3, params_bitwise_equal=same,
         round_skipped=h["round_skipped"], fault_dispatched=h["fault_dispatched"])
 
-    # No new host synchronisation: the same 3-round dense run with and
-    # without faults and an attack, each counted after an identical
-    # warm-up run (launches outside the counted runs).
+    # Host synchronisations of a 3-round run_scanned(), each counted after
+    # an identical warm-up run (launches outside the counted runs): the
+    # dense round makes none, with or without faults and an attack, and
+    # under int8 or top-k compression, so the run makes one, its final
+    # stacked copy; the population + fog run's count is reported beside
+    # them.
     def syncs(**over):
         cfg = sim_mod.SimulatorConfig(rounds=3, use_pallas_agg=True, **over)
         sim_mod.FedFogSimulator(cfg, device="cuda").run_scanned()
@@ -1771,11 +1936,16 @@ def phase_robustness(torch, sim_mod, smi) -> dict:
     plain_syncs = syncs()
     faulted_syncs = syncs(faults=FaultConfig(crash_rate=0.5, max_retries=2),
                           attack="noise", attack_fraction=0.20)
+    int8_syncs = syncs(compression="int8")
+    topk_syncs = syncs(compression="topk")
+    pop_syncs = syncs(**POP_FOG)
     say("robustness", run="sync_count", rounds=3, plain=plain_syncs,
-        faults_and_noise_attack=faulted_syncs, first_window_one_copy=first)
-    check(plain_syncs == faulted_syncs,
-          f"host synchronisations: {faulted_syncs} with faults and an attack, "
-          f"{plain_syncs} without")
+        faults_and_noise_attack=faulted_syncs, int8=int8_syncs, topk=topk_syncs,
+        population_fog=pop_syncs, first_window_one_copy=first)
+    check(plain_syncs == faulted_syncs == int8_syncs == topk_syncs == 1,
+          f"host synchronisations of 3 dense rounds: {faulted_syncs} with faults and an "
+          f"attack, {int8_syncs} under int8, {topk_syncs} under top-k, {plain_syncs} "
+          "without; 1 expected (the final copy)")
 
     # A tap: its rows equal the history at rounds 0, 5, 10, 15, and the
     # history equals the untapped run's bitwise.
@@ -1854,6 +2024,17 @@ def main() -> int:
         say("build", **entry)
         check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
               f"{entry['kernel']} spills")
+    # robust_kernel: N2 = 1 .. 64 with the column in registers, 128 and 256
+    # in shared memory; none spills, and a column kept in registers leaves
+    # no stack
+    robust = robust_ptxas(cu.library().log_path.read_text())
+    check(len(robust) == 9, f"robust_kernel instantiations in ptxas: {robust}")
+    for entry in robust:
+        say("build", **entry)
+        check(entry["spill_stores"] == 0 and entry["spill_loads"] == 0,
+              f"robust_kernel N2={entry['N2']} spills")
+        if entry["column"] == "registers":
+            check(entry["stack"] == 0, f"robust_kernel N2={entry['N2']}: column on the stack")
     # K6: the chunk-parallel kernel's plan at the prefill's shape, and its
     # instantiations
     say("build", kernel="wkv6_fwd", B=1, H=RWKV_HEADS,

@@ -7,6 +7,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.types import Array
+from repro_torch.device import scalar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,8 +22,8 @@ def invocation_delay(warm: Array, config: ColdStartConfig) -> Array:
     """Eq. 4: per-client delay in ms given current container state."""
     return torch.where(
         warm,
-        torch.tensor(config.delta_warm_ms, dtype=torch.float32, device=warm.device),
-        torch.tensor(config.delta_cold_ms, dtype=torch.float32, device=warm.device),
+        scalar(config.delta_warm_ms, warm.device),
+        scalar(config.delta_cold_ms, warm.device),
     )
 
 

@@ -23,6 +23,7 @@ from repro_torch.core.types import (
     SelectionResult,
     Thresholds,
 )
+from repro_torch.device import scalar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +47,9 @@ class SchedulerConfig:
     )
 
     def weights(self, device) -> SchedulerWeights:
+        """α and β as float32 vectors on ``device``: a copy from the host,
+        so a caller that schedules many rounds builds them once and passes
+        them to :func:`schedule_round`."""
         return SchedulerWeights(
             alpha=torch.tensor(self.alpha, dtype=torch.float32, device=device),
             beta=torch.tensor(self.beta, dtype=torch.float32, device=device),
@@ -67,10 +71,12 @@ def schedule_round(
     telemetry: ClientTelemetry,
     current_hist: Array,
     config: SchedulerConfig,
+    weights: SchedulerWeights | None = None,
 ) -> RoundDecision:
-    """One scheduling decision over the full client registry."""
+    """One scheduling decision over the full client registry. ``weights``
+    are ``config.weights`` on this device, built when not given."""
     dev = current_hist.device
-    w = config.weights(dev)
+    w = weights if weights is not None else config.weights(dev)
     health = health_score(telemetry, w.alpha)
     drift = drift_mod.drift_score(current_hist, state.prev_hist)
 
@@ -83,9 +89,9 @@ def schedule_round(
         else torch.full_like(state.theta_e, config.theta_e)
     )
     thresholds = Thresholds(
-        health=torch.tensor(config.theta_h, dtype=torch.float32, device=dev),
+        health=scalar(config.theta_h, dev),
         energy=theta_e,
-        drift=torch.tensor(config.theta_d, dtype=torch.float32, device=dev),
+        drift=scalar(config.theta_d, dev),
     )
     selection = select_clients(
         eff_health, telemetry.energy, eff_drift, thresholds, w.beta, config.top_k

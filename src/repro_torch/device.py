@@ -16,3 +16,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def scalar(x: float, device: str | torch.device) -> torch.Tensor:
+    """``x`` as a 0-d float32 tensor on ``device``, made by a fill kernel
+    whose value is an argument of the launch. ``torch.tensor(x,
+    device=...)`` would copy it from the host instead, and that copy waits
+    until the device queue has drained. The value is the same: ``x``
+    rounded to nearest float32."""
+    return torch.full((), x, dtype=torch.float32, device=device)

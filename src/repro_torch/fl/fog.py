@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.drift import normalize_histogram
 from repro_torch.core.types import PopulationSchedulerState, SchedulerState
+from repro_torch.device import scalar
 
 _EPS = 1e-12  # matches core.aggregation / kernels.delta_pipeline
 
@@ -144,8 +145,7 @@ def _discounted(mask, weights, staleness, staleness_exponent):
     if staleness is None:
         return m, m
     s = torch.clamp(staleness.to(torch.float32), min=0.0)
-    a = torch.as_tensor(staleness_exponent, dtype=torch.float32, device=m.device)
-    return m * (1.0 + s) ** (-a), m
+    return m * (1.0 + s) ** (-scalar(staleness_exponent, m.device)), m
 
 
 def fog_partial_sums(

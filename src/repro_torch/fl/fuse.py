@@ -7,6 +7,7 @@ compression table land on the same columns as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,8 +64,15 @@ def stacked_leaf_sizes(stacked) -> tuple[int, ...]:
 
 
 def segment_ids(sizes: tuple[int, ...], device) -> torch.Tensor:
-    """(P,) int32 leaf-segment id per fused-buffer column (``output_size``
-    given, so building it on the device reads nothing back)."""
+    """(P,) int32 leaf-segment id per fused-buffer column. Built once per
+    ``(sizes, device)`` and shared (callers do not write into it): its
+    build copies ``sizes`` from the host, a copy that waits for the device
+    queue, so a round must not make it again."""
+    return _segment_ids(tuple(int(s) for s in sizes), torch.device(device))
+
+
+@functools.cache
+def _segment_ids(sizes: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.repeat_interleave(
         torch.arange(len(sizes), dtype=torch.int32, device=device),
         torch.tensor(sizes, device=device),

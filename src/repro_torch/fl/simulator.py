@@ -223,6 +223,8 @@ class FedFogSimulator:
             faults_config.validate(cfg.faults)
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else TorchDraws(cfg.seed, self.device)
+        # α, β on the device once: a round copies nothing from the host.
+        self._sched_weights = cfg.scheduler.weights(self.device)
         self.data_cfg = cfg.data_cfg()
         in_dim, n_cls = cfg.dims()
         self.num_classes = n_cls
@@ -510,7 +512,8 @@ class FedFogSimulator:
                 sched, tel, profiles = sched_state, telemetry, env["profiles"]
                 data_sizes, malicious = env["data_sizes"], env["malicious"]
                 hist = self._histograms(data_cfg, round_idx)
-            decision = schedule_round(sched, tel, hist, cfg.scheduler)
+            decision = schedule_round(sched, tel, hist, cfg.scheduler,
+                                      self._sched_weights)
             mask = self._participation(decision, tel, round_idx)
         with _phase("local_sgd"):
             deltas, mask = self._local_deltas(

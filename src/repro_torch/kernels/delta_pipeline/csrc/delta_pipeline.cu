@@ -88,22 +88,55 @@
 //
 // Not changed by the streaming design: `sq_norms_kernel` (K2, one block per
 // client, 64 blocks on 132 SMs; splitting rows over blocks would fill the
-// card) and `robust_kernel` (median / trimmed mean, one thread per column,
-// an insertion sort in a thread-local array over the selected clients, C <=
-// 256, which spills to local memory; a warp-cooperative sorting network
-// would keep it in registers).
+// card).
+//
+// `robust_kernel` (K3's masked median / trimmed mean, C <= 256) is a
+// register-resident sorting network, one column per thread:
+//   * The grid covers P with one thread per column (881 blocks of 128 at
+//     P = 112,766), neighbouring threads on neighbouring columns, so each
+//     client row is one coalesced 128-byte access per warp.
+//   * The column's N2 = next power of two >= C values (N2 a template
+//     parameter) are loaded up front into `int v[N2]`, every load in
+//     flight before the first compare: selected rows through `transform`,
+//     unselected rows as the reference's +inf sentinel, the padding after
+//     every value.
+//     The 0/1 mask row is staged in shared memory, so its branch is
+//     uniform across the warp.
+//   * Each value is held as an integer sort key (`sort_key`) whose order is
+//     torch.sort's, every NaN after +inf (and -0.0 before +0.0, which
+//     torch.sort counts as equal). A compare-exchange is then an integer
+//     min / max pair, which keeps both values, NaN included.
+//   * Batcher's odd-even merge sort (543 compare-exchanges at N2 = 64) is
+//     unrolled at compile time from template recursion, so every index
+//     into `v` is a constant and the column never leaves registers. Any
+//     sorting network under one total order gives the reference's sorted
+//     values, which is what makes the median equal to it, NaN included.
+//   * Selection reads no dynamic index: the median takes v[lo] and v[hi]
+//     through a select chain over the constant indices, the trimmed mean
+//     is a predicated ascending sum from +0.0f, as the reference adds.
+//   * For N2 in {128, 256} the same network runs, its stages' loops not
+//     unrolled, on the thread's column in dynamic shared memory, laid out
+//     s[row * 128 + tid] (each thread touches only its own column: no bank
+//     conflict). No path runs it.
+// What bounds it: the network's 543 * 2 min / max per column (1.2e8 at the
+// slice, ~7.3 us at 64 a clock per SM on 132 SMs) and the selected rows'
+// deltas it reads (~6.3 us at 70 % of 64 clients selected).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kNormThreads = 1024;
 constexpr int kNormUnroll = 8;
-constexpr int kThreads = 128;  // robust_kernel
-constexpr int kCols = 4;       // robust_kernel
+// robust_kernel: threads per block, one column each; at most 255
+// registers a thread, so the 64 keys and the addresses fit without a spill.
+constexpr int kRobustThreads = 128;
+constexpr int kRobustMaxC = 256;  // N2 <= 64 in registers, 128 and 256 in shared memory
 
 // fedavg_kernel: one producer warp and kConsumers consumer threads, each
 // owning kColsPerThread columns of a tile spaced kConsumers apart. The
@@ -223,7 +256,10 @@ __device__ __forceinline__ float transform(float x, int c, int sg,
   if (a.compression != kNone) {
     const float col = __ldg(a.tab + c * a.L + sg);
     if (a.compression == kInt8) {
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(x, col)), -127.f), 127.f);
+      // A clamp that keeps NaN, as torch.clamp and jnp.clip do (fminf /
+      // fmaxf would turn it into -127).
+      float q = rintf(__fdiv_rn(x, col));
+      q = q < -127.f ? -127.f : (q > 127.f ? 127.f : q);
       x = __fmul_rn(q, col);
     } else {
       x = __fmul_rn(x, fabsf(x) >= col ? 1.f : 0.f);
@@ -635,55 +671,210 @@ __global__ void __launch_bounds__(kFedThreads) fedavg_kernel(Args<T> a, Plan pl)
   }
 }
 
-// Masked coordinate-wise median / trimmed mean. Unselected clients are the
-// +inf sentinels of the reference: they sort after every selected value, so
-// only the selected values are kept (sorted ascending) and any index at or
-// beyond their count reads +inf. Index arithmetic is the reference's,
-// including num_sel == 0 (median +inf, trimmed mean 0).
-template <int CAP>
-__global__ void __launch_bounds__(kThreads) robust_kernel(PipelineArgs a,
-                                                          int trimmed) {
-  extern __shared__ float smem[];
-  float* s_wn = smem;
-  float* s_pre = smem + a.C;
-  stage_rows(a, s_wn, s_pre);
-  const int num_sel = a.cnt[0];
-  const int k_trim = a.cnt[1];
+// ---- robust_kernel: masked median / trimmed mean by a sorting network --- //
 
-  const long long p0 =
-      static_cast<long long>(blockIdx.x) * (kThreads * kCols) + threadIdx.x;
-  for (int j = 0; j < kCols; ++j) {
-    const long long p = p0 + j * kThreads;
-    if (p >= a.P) break;
+// Stage (P, K) of Batcher's odd-even merge sort over N2 entries compares a
+// with a + K when j0 = K mod P <= a, (a - j0) / K is even, a + K < N2 and
+// a, a + K lie in the same 2P-block (the stage's pairs are disjoint).
+template <int N2, int P, int K, typename Col>
+__device__ __forceinline__ void compare_exchange(Col& v, int a) {
+  constexpr int j0 = K % P;
+  if (a >= j0 && ((a - j0) / K) % 2 == 0 && a + K < N2 &&
+      a / (2 * P) == (a + K) / (2 * P)) {
+    const int x = v[a];
+    const int y = v[a + K];
+    v[a] = min(x, y);
+    v[a + K] = max(x, y);
+  }
+}
+
+// The network sorts integer keys in torch.sort's order of the floats (which
+// counts -0.0 and +0.0 as equal): every NaN made one quiet NaN, then the
+// sign-magnitude bits mapped to two's complement, so -inf < ... < -0.0 <
+// +0.0 < ... < +inf < NaN. A compare-exchange is then an integer min / max
+// pair that keeps both values (a float fminf / fmaxf pair would drop a NaN
+// and duplicate its partner). The map is its own inverse.
+__device__ __forceinline__ int sort_key(float x) {
+  const int b = x != x ? 0x7fffffff : __float_as_int(x);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// One stage, a ascending. For a column in registers (an int[N2]) the loop
+// and its condition unroll to a fixed list of min / max pairs on constant
+// indices; for one in shared memory (SharedCol) it stays a loop,
+// which keeps the 128- and 256-row instantiations small.
+// tests/_robust_network.py lists the same pairs in the same order.
+template <int N2, int P, int K, typename Col>
+__device__ __forceinline__ void merge_stage(Col& v) {
+  if constexpr (std::is_array<Col>::value) {
+#pragma unroll
+    for (int a = 0; a < N2; ++a) compare_exchange<N2, P, K>(v, a);
+  } else {
+#pragma unroll 1
+    for (int a = 0; a < N2; ++a) compare_exchange<N2, P, K>(v, a);
+  }
+}
+
+template <int N2, int P, int K, typename Col>
+__device__ __forceinline__ void merge_steps(Col& v) {
+  merge_stage<N2, P, K>(v);
+  if constexpr (K > 1) merge_steps<N2, P, K / 2>(v);
+}
+
+// Sorts v[0..N2) ascending: P = 1, 2, ..., N2/2, and for each P the steps
+// K = P, P/2, ..., 1. 543 compare-exchanges at N2 = 64.
+template <int N2, int P = 1, typename Col>
+__device__ __forceinline__ void sort_network(Col& v) {
+  if constexpr (P < N2) {
+    merge_steps<N2, P, P>(v);
+    sort_network<N2, 2 * P>(v);
+  }
+}
+
+// A thread's column in dynamic shared memory, row r at s[r * kRobustThreads]
+// (a constant offset from the thread's first row once the network unrolls).
+// Volatile, so that each compare-exchange reads and writes its two rows
+// rather than the compiler holding the column in registers, which spilled.
+struct SharedCol {
+  volatile int* s;
+  __device__ __forceinline__ volatile int& operator[](int r) const {
+    return s[r * kRobustThreads];
+  }
+};
+
+// Loads column p of the N2 rows into v (every load in flight before the
+// network reads any of them), applies the clip / compression transform to
+// the selected rows in a loop of its own, so that its uniform tests stay
+// out of the load loop, maps the values to sort keys, sorts them and
+// selects. Unselected clients are the reference's +inf sentinels: they sort
+// after every selected value but a NaN, as in the reference's torch.sort
+// over its C rows. The padding rows (c >= C) are NaN, whose key is the
+// largest, so the first C sorted rows are the reference's and no index the
+// selection reads (< C) reaches them. Index arithmetic is the reference's,
+// including num_sel == 0 (median +inf, trimmed mean 0).
+template <int N2, typename Col>
+__device__ __forceinline__ float robust_column(const PipelineArgs& a, long long p,
+                                               const float* s_wn, const float* s_pre,
+                                               int trimmed, Col& v) {
+  constexpr int kInfKey = 0x7f800000;  // +inf: its bits and its key
+  constexpr int kNanBits = 0x7fffffff;  // a quiet NaN, key the largest
+#pragma unroll
+  for (int c = 0; c < N2; ++c) {
+    int b = c < a.C ? kInfKey : kNanBits;
+    if (c < a.C && s_wn[c] > 0.f) {
+      b = __float_as_int(__ldg(a.upd + static_cast<long long>(c) * a.P + p));
+    }
+    v[c] = b;
+  }
+  if (a.pre != nullptr || a.compression != kNone) {
     const int sg = a.seg != nullptr ? __ldg(a.seg + p) : 0;
-    float v[CAP];
-    int n = 0;
-    for (int c = 0; c < a.C; ++c) {
-      if (!(s_wn[c] > 0.f)) continue;
-      const float x = transform(__ldg(a.upd + static_cast<long long>(c) * a.P + p),
-                                c, sg, a, s_pre);
-      int i = n++;
-      while (i > 0 && v[i - 1] > x) {
-        v[i] = v[i - 1];
-        --i;
+#pragma unroll
+    for (int c = 0; c < N2; ++c) {
+      if (c < a.C && s_wn[c] > 0.f) {
+        v[c] = __float_as_int(transform(__int_as_float(v[c]), c, sg, a, s_pre));
       }
-      v[i] = x;
     }
-    float agg;
-    if (!trimmed) {
-      const int lo = max((num_sel - 1) / 2, 0);
-      const int hi = num_sel / 2;
-      const float vlo = lo < n ? v[lo] : INFINITY;
-      const float vhi = hi < n ? v[hi] : INFINITY;
-      agg = __fmul_rn(0.5f, __fadd_rn(vlo, vhi));
-    } else {
-      float total = 0.f;
-      for (int i = k_trim; i < num_sel - k_trim; ++i) {
-        total = __fadd_rn(total, i < n ? v[i] : INFINITY);
-      }
-      agg = __fdiv_rn(total, static_cast<float>(max(num_sel - 2 * k_trim, 1)));
+  }
+#pragma unroll
+  for (int c = 0; c < N2; ++c) v[c] = sort_key(__int_as_float(v[c]));
+  sort_network<N2>(v);
+  const int num_sel = __ldg(a.cnt);
+  if (!trimmed) {
+    const int lo = max((num_sel - 1) / 2, 0);
+    const int hi = num_sel / 2;
+    int klo = kInfKey, khi = kInfKey;
+#pragma unroll
+    for (int i = 0; i < N2; ++i) {
+      klo = i == lo ? v[i] : klo;
+      khi = i == hi ? v[i] : khi;
     }
-    epilogue(agg, p, a);
+    return __fmul_rn(0.5f, __fadd_rn(key_value(klo), key_value(khi)));
+  }
+  const int k_trim = __ldg(a.cnt + 1);
+  const int end = num_sel - k_trim;
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < N2; ++i) {
+    if (i >= k_trim && i < end) total = __fadd_rn(total, key_value(v[i]));
+  }
+  return __fdiv_rn(total, static_cast<float>(max(num_sel - 2 * k_trim, 1)));
+}
+
+// Dynamic shared memory: the (C,) mask and clip rows, then (kShared) the
+// block's columns, N2 rows of kRobustThreads keys.
+__host__ __device__ inline long long robust_cols_offset(int C) {
+  return align_up(8LL * C, 16);
+}
+
+// kShared = false: the column in registers (N2 <= 64); kShared = true: in
+// shared memory (N2 in {128, 256}). `transform` tests its gates itself.
+template <int N2, bool kShared>
+__global__ void __launch_bounds__(kRobustThreads) robust_kernel(PipelineArgs a,
+                                                                int trimmed) {
+  extern __shared__ __align__(16) unsigned char robust_smem[];
+  float* s_wn = reinterpret_cast<float*>(robust_smem);
+  float* s_pre = s_wn + a.C;
+  stage_rows(a, s_wn, s_pre);
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= a.P) return;
+  float agg;
+  if constexpr (kShared) {
+    SharedCol v{reinterpret_cast<int*>(robust_smem + robust_cols_offset(a.C)) +
+                threadIdx.x};
+    agg = robust_column<N2>(a, p, s_wn, s_pre, trimmed, v);
+  } else {
+    int v[N2];
+    agg = robust_column<N2>(a, p, s_wn, s_pre, trimmed, v);
+  }
+  epilogue(agg, p, a);
+}
+
+template <int N2, bool kShared>
+int launch_robust_n2(const PipelineArgs& a, int trimmed, cudaStream_t s) {
+  const long long blocks = (a.P + kRobustThreads - 1) / kRobustThreads;
+  const long long smem =
+      kShared ? robust_cols_offset(a.C) + 4LL * N2 * kRobustThreads : 8LL * a.C;
+  if (blocks > 0x7fffffffLL || smem > kMaxSmem) return -1;
+  if constexpr (kShared) {
+    // Above 48 KB only after raising the attribute, once per instantiation
+    // and device.
+    constexpr int kMaxDevices = 64;
+    static bool raised[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 0 || dev >= kMaxDevices) return -1;
+    if (!raised[dev]) {
+      e = cudaFuncSetAttribute(robust_kernel<N2, kShared>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      raised[dev] = true;
+    }
+  }
+  robust_kernel<N2, kShared><<<static_cast<unsigned>(blocks), kRobustThreads,
+                               static_cast<size_t>(smem), s>>>(a, trimmed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation for N2 = the next power of two >= C.
+int launch_robust(const PipelineArgs& a, int trimmed, cudaStream_t s) {
+  int n2 = 1;
+  while (n2 < a.C) n2 <<= 1;
+  switch (n2) {
+    case 1: return launch_robust_n2<1, false>(a, trimmed, s);
+    case 2: return launch_robust_n2<2, false>(a, trimmed, s);
+    case 4: return launch_robust_n2<4, false>(a, trimmed, s);
+    case 8: return launch_robust_n2<8, false>(a, trimmed, s);
+    case 16: return launch_robust_n2<16, false>(a, trimmed, s);
+    case 32: return launch_robust_n2<32, false>(a, trimmed, s);
+    case 64: return launch_robust_n2<64, false>(a, trimmed, s);
+    case 128: return launch_robust_n2<128, true>(a, trimmed, s);
+    case 256: return launch_robust_n2<256, true>(a, trimmed, s);
+    default: return -1;
   }
 }
 
@@ -749,7 +940,7 @@ int fedfog_delta_pipeline(const float* upd, const float* base, const float* wn,
                           int rows, int stages, int smem_bytes, void* stream) {
   if (C <= 0 || P <= 0 || C > 4096) return -1;
   if (compression != kNone && (seg == nullptr || tab == nullptr || L <= 0)) return -1;
-  if (aggregator != kFedavg && (cnt == nullptr || C > 256)) return -1;
+  if (aggregator != kFedavg && (cnt == nullptr || C > kRobustMaxC)) return -1;
   if ((mu == nullptr) != (new_mu == nullptr)) return -1;
   PipelineArgs a{upd, base, wn, cnt, pre, seg, tab, noise, mu, out, new_mu,
                  P, C, L, lr, server_momentum, compression, optimizer};
@@ -757,17 +948,9 @@ int fedfog_delta_pipeline(const float* upd, const float* base, const float* wn,
   if (aggregator == kFedavg) {
     return launch_streaming<false, float>(a, blocks, tile_cols, rows, stages, smem_bytes, s);
   }
-  const long long per_block = static_cast<long long>(kThreads) * kCols;
-  const dim3 grid(static_cast<unsigned>((P + per_block - 1) / per_block));
-  const size_t shmem = 2 * sizeof(float) * static_cast<size_t>(C);
-  if (C <= 64) {
-    robust_kernel<64><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
-  } else {
-    robust_kernel<256><<<grid, kThreads, shmem, s>>>(a, aggregator == kTrimmed);
-  }
-  const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) ++g_robust_launches;
-  return static_cast<int>(e);
+  const int e = launch_robust(a, aggregator == kTrimmed, s);
+  if (e == 0) ++g_robust_launches;
+  return e;
 }
 
 long long fedfog_robust_launches() { return g_robust_launches; }

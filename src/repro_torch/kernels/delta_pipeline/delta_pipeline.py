@@ -10,7 +10,8 @@ UNnormalized weighted sum) from ``csrc/delta_pipeline.cu``. As in the JAX wrappe
 (Eq. 6 weights with the optional staleness discount and damping, the
 ``[num_sel, k_trim]`` pair, the clip scales) and the (C, L) compression
 table (:func:`segment_table`) are computed outside the kernel with
-torch ops, on the device, with no host synchronisation.
+torch ops, on the device, with no host synchronisation (their Python
+constants are fills, ``device.scalar``, not copies from the host).
 
 K3's weighted sum, K4 and K1 launch one streaming kernel on a grid and
 shared-memory ring that :func:`fedavg_plan` computes here from the
@@ -35,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import scalar
 from repro_torch.fl.fuse import segment_ids
 from repro_torch.kernels._build import load_library
 
@@ -290,8 +292,7 @@ def pipeline_rows(
         wn = mask.to(torch.float32)
         num_sel = torch.sum(mask.to(torch.int32))
         k_trim = torch.floor(
-            num_sel.to(torch.float32)
-            * torch.as_tensor(trim_fraction, dtype=torch.float32, device=dev)
+            num_sel.to(torch.float32) * scalar(trim_fraction, dev)
         ).to(torch.int32)
         cnt = torch.stack([num_sel, k_trim]).to(torch.int32)
     else:
@@ -300,9 +301,7 @@ def pipeline_rows(
             # (1+s)^-a discount + global damping (the async_aggregate rule,
             # equal to plain Eq. 6 at zero staleness).
             s = torch.clamp(staleness.to(torch.float32), min=0.0)
-            disc = (1.0 + s) ** (
-                -torch.as_tensor(staleness_exponent, dtype=torch.float32, device=dev)
-            )
+            disc = (1.0 + s) ** (-scalar(staleness_exponent, dev))
             dm = m * disc
             wn = dm / (torch.sum(dm) + _EPS)
             wn = wn * ((torch.sum(dm) + _EPS) / (torch.sum(m) + _EPS))
@@ -322,8 +321,7 @@ def gate_rows(updates, clip_norm, compression, topk_fraction, seg_sizes,
     pre = None
     if clip_norm and clip_norm > 0:
         norm = torch.sqrt(sq_norms(updates))
-        limit = torch.tensor(clip_norm, dtype=torch.float32, device=dev)
-        pre = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
+        pre = torch.clamp(scalar(clip_norm, dev) / torch.clamp(norm, min=1e-12), max=1.0)
     seg = tab = None
     if compression != "none":
         seg = segment_ids(seg_sizes, dev)

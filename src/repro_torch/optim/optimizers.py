@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.device import scalar
 
 
 def global_norm(t, *, per_client: bool = False) -> torch.Tensor:
@@ -25,8 +26,8 @@ def clip_by_global_norm(t, max_norm: float, *, per_client: bool = False):
     client is clipped on its own norm (the JAX round vmaps the unbatched
     function). Returns ``(clipped, norm)``."""
     norm = global_norm(t, per_client=per_client)
-    limit = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
-    scale = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
+    scale = torch.clamp(scalar(max_norm, norm.device) / torch.clamp(norm, min=1e-12),
+                        max=1.0)
 
     def one(l):
         s = scale.reshape((-1,) + (1,) * (l.dim() - 1)) if per_client else scale

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.coldstart import ColdStartConfig
 from repro_torch.core.energy import EnergyModelConfig
+from repro_torch.device import scalar
 
 Array = torch.Tensor
 
@@ -43,9 +44,11 @@ class RoundCosts(NamedTuple):
 
 
 def _f32(x: float, like: Array) -> Array:
-    """A Python scalar as a float32 tensor, so ``scalar / tensor`` divides
-    (torch's reflected division multiplies by a reciprocal instead)."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """A Python scalar as a 0-d float32 tensor on ``like``'s device, so
+    ``scalar / tensor`` divides (torch's reflected division multiplies by a
+    reciprocal instead). Made by a fill kernel (``device.scalar``), not
+    copied from the host, so a round does not wait for the device queue."""
+    return scalar(x, like.device)
 
 
 @dataclasses.dataclass(frozen=True)

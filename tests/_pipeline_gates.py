@@ -9,8 +9,10 @@ port twice:
   * ``kernel_model``: the CUDA kernel's arithmetic written in torch,
     applied to the rows the CUDA wrapper prepares (``pipeline_rows``:
     Eq. 6 weights with staleness folded in, clip scales, a compression
-    table computed on the raw deltas and rescaled). The card cannot run
-    here; this holds the kernel's design against the JAX kernel.
+    table computed on the raw deltas and rescaled), the median / trimmed
+    route through ``_robust_network`` (the kernel's sorting network and
+    selection). The card cannot run here; this holds the kernel's design
+    against the JAX kernel.
 
 Both must equal the JAX kernel bitwise with every gate off (its own
 contract against its reference); with gates on, to ``rtol=1e-5`` with
@@ -26,6 +28,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+from _robust_network import robust_aggregate
 
 from repro.kernels.delta_pipeline import delta_pipeline_apply as jax_apply
 from repro_torch.kernels.delta_pipeline import delta_pipeline_apply
@@ -71,10 +75,9 @@ def to_torch(fx):
     return {k: torch.from_numpy(np.array(v)) for k, v in fx.items()}
 
 
-def kernel_model(upd, base, rows, noise, mu, *, lr, server_momentum,
-                 compression, aggregator, server_optimizer):
-    """The CUDA kernel's per-column arithmetic, in torch, on prepared rows."""
-    wn, cnt, pre, seg, tab = rows
+def kernel_transform(upd, pre, seg, tab, compression):
+    """The kernels' ``transform``: clip pre-scale, then int8 or top-k
+    emulation with each client's table entry for the column's leaf."""
     x = upd.to(torch.float32)
     if pre is not None:
         x = x * pre[:, None]
@@ -84,21 +87,21 @@ def kernel_model(upd, base, rows, noise, mu, *, lr, server_momentum,
             x = torch.clamp(torch.round(x / col), -127.0, 127.0) * col
         else:
             x = x * (torch.abs(x) >= col).to(torch.float32)
+    return x
+
+
+def kernel_model(upd, base, rows, noise, mu, *, lr, server_momentum,
+                 compression, aggregator, server_optimizer):
+    """The CUDA kernel's per-column arithmetic, in torch, on prepared rows."""
+    wn, cnt, pre, seg, tab = rows
+    x = kernel_transform(upd, pre, seg, tab, compression)
     if aggregator == "fedavg":
         agg = torch.zeros_like(x[0])
         for c in range(x.shape[0]):
             agg = _fma(wn[c], x[c], agg)
     else:
-        s = torch.sort(torch.where(wn[:, None] > 0, x, torch.inf), dim=0).values
         num_sel, k_trim = (int(v) for v in cnt)
-        if aggregator == "median":
-            lo, hi = max((num_sel - 1) // 2, 0), num_sel // 2
-            agg = 0.5 * (s[lo] + s[hi])
-        else:
-            agg = torch.zeros_like(x[0])
-            for i in range(k_trim, num_sel - k_trim):
-                agg = agg + s[i]
-            agg = agg / float(max(num_sel - 2 * k_trim, 1))
+        agg = robust_aggregate(x, wn > 0, num_sel, k_trim, aggregator)
     if noise is not None:
         agg = agg + noise
     lr32 = torch.tensor(lr, dtype=torch.float32)

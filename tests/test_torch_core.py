@@ -340,3 +340,45 @@ def test_round_costs_match_jax(policy, compression):
         torch.from_numpy(sel), torch.from_numpy(warm), *args, policy=policy)
     for f in jdes.RoundCosts._fields:
         _close(getattr(ct, f), getattr(cj, f))
+
+
+@pytest.mark.parametrize("x", [0.4, 0.3, 0.1, 0.6, 2000.0, 1.5, 6.0 * 112_766 * 96,
+                               1e-30, -0.5, 3.4e38])
+def test_scalar_fill_equals_host_tensor(x):
+    """``device.scalar`` (a fill, used for the round's Python constants so
+    that a round makes no host copy) gives the float32 value that
+    ``torch.tensor(x, dtype=float32)`` gives: ``x`` rounded to nearest."""
+    from repro_torch.device import scalar
+
+    got = scalar(x, "cpu")
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert got.view(torch.int32) == torch.tensor(x, dtype=torch.float32).view(torch.int32)
+    assert float(got) == float(np.float32(x))
+
+
+def test_segment_ids_built_once():
+    """``fl.fuse.segment_ids`` builds a (sizes, device) pair's ids once (its
+    build copies from the host) and hands the same tensor back after."""
+    from repro_torch.fl.fuse import segment_ids
+
+    sizes = (3, 1, 4, 2)
+    ids = segment_ids(sizes, "cpu")
+    assert ids.dtype == torch.int32
+    assert ids.tolist() == [0, 0, 0, 1, 2, 2, 2, 2, 3, 3]
+    assert segment_ids(list(sizes), torch.device("cpu")) is ids
+
+
+def test_schedule_round_with_prebuilt_weights():
+    """``schedule_round`` given ``config.weights`` built once decides as it
+    does when it builds them itself."""
+    rng = np.random.default_rng(3)
+    n, v = 10, 62
+    _, tel = _tel(rng, n)
+    _, state = _sched(rng, n, v)
+    cur = torch.from_numpy(rng.dirichlet(np.full(v, 0.5), size=n).astype(np.float32))
+    cfg = tcore.SchedulerConfig(theta_d=0.5, top_k=3)
+    a = tcore.schedule_round(state, tel, cur, cfg)
+    b = tcore.schedule_round(state, tel, cur, cfg, cfg.weights("cpu"))
+    for f in ("mask", "order", "num_selected", "utility", "health", "drift"):
+        assert torch.equal(getattr(a.selection, f), getattr(b.selection, f))
+    assert torch.equal(a.delays_ms, b.delays_ms)
