@@ -120,6 +120,34 @@ Phases, one line of output each (any failure raises and exits non-zero):
                   every 5 rounds, its rows equal to the history and its
                   history equal to the untapped run's; ms/round of each
                   run printed beside the card's name and power limit;
+                async: the event engine (sim.events.AsyncFedFogSimulator)
+                  at the dense width, 20 dispatches, use_pallas_agg: (a)
+                  cohort mode, (b) FedAsync with a 0.5 straggler tail, (c)
+                  FedBuff(8) at four fogs, (d) FedBuff(8) under median and
+                  the noise attack, (e) FedBuff(8) with churn and faults
+                  (crashes, retries, a deadline), (f) FedBuff(8) at
+                  population 10^6 with four fogs; K3 launched once per
+                  flush in (a), (b), (e) (on its staleness route),
+                  robust_kernel once per flush in (d), K4 four times per
+                  flush in (c), (f); no queue drop; admitted = completions
+                  + terminal + lost + in flight, and without faults
+                  completions = aggregated + buffered; (a) equal to the
+                  port's run_scanned() (accuracy within 2/512, counts
+                  exactly); staleness > 0 in (b); the coalesced loop equal
+                  to the single-pop loop bit for bit on (b) and (e) at 5
+                  dispatches; host synchronisations per coalesced step (at
+                  most 2, and 1 for the check that finds the queue empty)
+                  on (a), (b), (e); wall ms per dispatch and
+                  per flush printed;
+                sweep: run_sweep at the dense configuration, 10 rounds,
+                  seeds 0-2, policy (4) x lr (2): K3 once per round, seed 1
+                  of two points equal to its standalone run_scanned() bit
+                  for bit, group=False equal to group=True, aot_scanned()
+                  of one simulator run by run_scanned_with() on peers of
+                  seeds 0 and 1 equal to their run_scanned(); an async
+                  FedBuff(8) sweep of two seeds, K3 once per flush, seed 1
+                  equal to the standalone engine's run; wall seconds per
+                  (point, seed) printed;
                 serving: ContinuousBatchingEngine for full-width llama3.2-1b
                 in bf16 (random weights from a seed), attn_impl "flash" and
                 attn "paged", 8 slots of 16-token pages, 128-token prompts,
@@ -147,8 +175,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 per decode step, tokens per wall second, init s, peak bytes
                 and the share of first tokens equal to the plain prefill's
                 printed;
-  5. result   — the kernels' JSON line, nvidia-smi's line and, last,
-                {"ok": true, "device": {...}}.
+  5. result   — the kernels' JSON line (K3 and K4 with their async and
+                sweep launches beside the main paths'), nvidia-smi's line
+                and, last, {"ok": true, "device": {...}}.
+
+Each phase prints its seconds (``[phase] name=... seconds=...``).
 
 Imports nothing of JAX or of the JAX package. Without a CUDA device, or
 run from a directory without ``src/repro_torch``, it exits non-zero and
@@ -1965,6 +1996,260 @@ def phase_robustness(torch, sim_mod, smi) -> dict:
     return totals
 
 
+# ---- the asynchronous event engine and the sweep ----------------------- #
+# 20 dispatches at the dense configuration's full width (64 clients, the
+# 112,766-parameter MLP); the bitwise loop comparisons at 5.
+ASYNC_DISPATCHES = 20
+ASYNC_ORACLE_DISPATCHES = 5
+ASYNC_FAULTS = dict(crash_rate=0.3, max_retries=2, deadline_ms=6000.0)
+ASYNC_CHURN = dict(arrival_rate=0.2, departure_rate=0.1)
+
+
+def async_configs(ev_mod, faults_mod):
+    """(name, SimulatorConfig overrides, AsyncConfig, expected launches as
+    {kernel: flushes multiplier}) of the async phase's runs (a)-(f)."""
+    A, K3, K4 = ev_mod.AsyncConfig, "delta_pipeline_apply", "delta_pipeline_partial"
+    return (
+        ("a/cohort", {}, A(), {K3: 1}),
+        ("b/fedasync", {}, A.fedasync(straggler_sigma=0.5), {K3: 1}),
+        ("c/fedbuff8+4fogs", dict(fog_nodes=4), A.fedbuff(8), {K4: 4}),
+        ("d/fedbuff8+median+noise", dict(aggregator="median", attack="noise",
+                                          attack_fraction=0.20), A.fedbuff(8),
+         {K3: 1, "robust_kernel": 1}),
+        ("e/fedbuff8+churn+faults", dict(faults=faults_mod.FaultConfig(**ASYNC_FAULTS)),
+         A.fedbuff(8, churn=ev_mod.ChurnConfig(**ASYNC_CHURN)), {K3: 1}),
+        ("f/fedbuff8+population+4fogs", dict(POP_FOG), A.fedbuff(8), {K4: 4}),
+    )
+
+
+def async_run(torch, sim_mod, ev_mod, dispatches, acfg, **over):
+    """One event-loop run on the card, launch counts set to 0 just before
+    the loop and read just after. Returns (sim, final state, history,
+    launches, loop seconds)."""
+    import warnings
+
+    cfg = sim_mod.SimulatorConfig(rounds=dispatches, use_pallas_agg=True, **over)
+    sim = ev_mod.AsyncFedFogSimulator(cfg, acfg, device="cuda")
+    state = sim.init_state(cfg.seed)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    final = sim._scan_events(state)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # churn losses are expected
+        hist = sim.history(final)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    expect_launches(launches, fedavg_apply=0, delta_sq_norms=0, flash_attention_fwd=0,
+                    wkv6_fwd=0, paged_attention_fwd=0)
+    for k, v in hist.items():
+        vals = v if isinstance(v, list) else [v]
+        check(all(math.isfinite(x) for x in vals), f"async metric {k} not finite")
+    return sim, final, hist, launches, seconds
+
+
+def same_final(torch, a, b) -> bool:
+    """Two final states equal bit for bit: flush channels, counters,
+    parameters."""
+    same = all(torch.equal(a.m_flush[k], b.m_flush[k]) for k in a.m_flush)
+    for k in ("completions", "lost_inflight", "fault_retries", "fault_terminal",
+              "fault_lost_deadline", "fault_failures", "t_ms"):
+        same = same and torch.equal(getattr(a, k), getattr(b, k))
+    same = same and all(torch.equal(x[k], y[k]) for x, y in zip(a.params, b.params)
+                        for k in x)
+    return same and a.flush_idx == b.flush_idx
+
+
+def phase_async(torch, sim_mod, smi) -> dict:
+    """The event engine (``sim.events``) at the dense configuration's full
+    width: cohort mode against the port's run_scanned(), FedAsync, FedBuff
+    at four fogs (K4), under median (robust_kernel), with churn and faults,
+    and at population 10^6 with four fogs; launches against flushes,
+    updates conserved, no queue drop, the loops bit for bit, the host
+    synchronisations per coalesced step. Returns the launches summed."""
+    import dataclasses as dc
+
+    from repro_torch.sim import events as ev_mod
+    from repro_torch.sim import faults as faults_mod
+
+    totals = {name: 0 for name in kernel_counters()}
+    totals["robust_kernel"] = 0
+    for name, over, acfg, want in async_configs(ev_mod, faults_mod):
+        sim, final, h, ln, sec = async_run(torch, sim_mod, ev_mod, ASYNC_DISPATCHES, acfg,
+                                           **over)
+        for k, v in ln.items():
+            totals[k] += v
+        n_f, n_d = h["num_flushes"], h["num_dispatches"]
+        check(n_f > 0 and n_d == ASYNC_DISPATCHES, f"{name}: {n_d} dispatches, {n_f} flushes")
+        full = {k: m * n_f for k, m in want.items()}
+        full.setdefault("delta_pipeline_apply", 0)
+        full.setdefault("delta_pipeline_partial", 0)
+        full.setdefault("robust_kernel", 0)
+        expect_launches(ln, **full)
+        check(int(final.queue.dropped) == 0, f"{name}: the queue dropped events")
+        admitted = int(sum(h["dispatch_num_admitted"]))
+        busy, buffered = int(final.busy.sum()), int(final.buf.sum())
+        lost = h["lost_inflight"] + h["fault_lost_deadline"]
+        check(admitted == h["num_completions"] + h["fault_terminal"] + lost + busy,
+              f"{name}: admitted {admitted} != completions {h['num_completions']} + "
+              f"terminal {h['fault_terminal']} + lost {lost} + in flight {busy}")
+        if over.get("faults") is None:
+            check(h["num_completions"] == sum(h["num_aggregated"]) + buffered,
+                  f"{name}: completions {h['num_completions']} != aggregated "
+                  f"{sum(h['num_aggregated'])} + buffered {buffered}")
+        say("async", run=name, dispatches=n_d, flushes=n_f, steps=sim.steps,
+            admitted=admitted, completions=h["num_completions"],
+            lost_inflight=h["lost_inflight"], terminal=h["fault_terminal"],
+            lost_deadline=h["fault_lost_deadline"], retries=h["fault_retries"],
+            in_flight=busy, buffered=buffered, conserved=True, launches={
+                k: v for k, v in ln.items() if v},
+            max_mean_staleness=max(h["mean_staleness"]),
+            final_accuracy=h["final_accuracy"], virtual_ms=h["virtual_time_ms"],
+            wall_ms_per_dispatch=sec / n_d * 1e3, wall_ms_per_flush=sec / n_f * 1e3,
+            card=repr(smi))
+        if name.startswith("a/"):
+            # Sync recovery: the port's own synchronous rounds on the same
+            # keyed draws (not counted: a sync run).
+            hs = sim_mod.FedFogSimulator(
+                sim_mod.SimulatorConfig(rounds=ASYNC_DISPATCHES, use_pallas_agg=True),
+                device="cuda").run_scanned()
+            acc_diff = max(abs(a - b) for a, b in zip(h["accuracy"], hs["accuracy"]))
+            check(n_f == ASYNC_DISPATCHES and acc_diff <= 2 / 512,
+                  f"cohort mode vs run_scanned: accuracy differs by {acc_diff}")
+            check(h["cold_starts"] == hs["cold_starts"]
+                  and h["num_aggregated"] == hs["num_selected"],
+                  "cohort mode vs run_scanned: cold starts or selections differ")
+            for x, y, what in ((h["update_latency_ms"], hs["round_latency_ms"], "latency"),
+                               (h["energy_j"], hs["energy_j"], "energy")):
+                check(all(abs(a - b) <= 1e-5 * abs(b) + 1e-3 for a, b in zip(x, y)),
+                      f"cohort mode vs run_scanned: {what} differs")
+            say("async", run="a/cohort_vs_run_scanned", accuracy_max_abs_diff=acc_diff,
+                bitwise_accuracy=h["accuracy"] == hs["accuracy"])
+        if name.startswith("b/"):
+            check(max(h["mean_staleness"]) > 0, "fedasync: no stale update aggregated")
+    # The coalesced loop against the single-pop loop, at 5 dispatches.
+    for name, over, acfg, _ in async_configs(ev_mod, faults_mod):
+        if name[0] not in "be":
+            continue
+        runs = []
+        for coalesce in (True, False):
+            sim, final, h, ln, sec = async_run(
+                torch, sim_mod, ev_mod, ASYNC_ORACLE_DISPATCHES,
+                dc.replace(acfg, coalesce=coalesce), **over)
+            for k, v in ln.items():
+                totals[k] += v
+            runs.append((sim.steps, final, sec))
+        same = same_final(torch, runs[0][1], runs[1][1])
+        check(same, f"{name}: the coalesced loop differs from the single-pop loop")
+        say("async", run=f"{name}/coalesced_vs_single_pop", dispatches=ASYNC_ORACLE_DISPATCHES,
+            bitwise_equal=same, coalesced_steps=runs[0][0], single_pop_steps=runs[1][0],
+            coalesced_s=runs[0][2], single_pop_s=runs[1][2])
+    # Host synchronisations per coalesced step (5 dispatches each).
+    for name, over, acfg, _ in async_configs(ev_mod, faults_mod):
+        if name[0] not in "abe":
+            continue
+        cfg = sim_mod.SimulatorConfig(rounds=ASYNC_ORACLE_DISPATCHES, use_pallas_agg=True,
+                                      **over)
+        sim = ev_mod.AsyncFedFogSimulator(cfg, acfg, device="cuda")
+        state = sim.init_state(cfg.seed)
+        torch.cuda.synchronize()
+        out = {}
+        n = count_syncs(torch, lambda: out.setdefault("f", sim._scan_events(state)))
+        f = out["f"]
+        # At most two a step, and one more for the check that finds the
+        # queue empty.
+        check(n <= 2 * sim.steps + 1,
+              f"{name}: {n} synchronisations in {sim.steps} steps")
+        say("async", run=f"{name}/sync_count", dispatches=ASYNC_ORACLE_DISPATCHES,
+            steps=sim.steps, flushes=f.flush_idx, syncs=n, syncs_per_step=n / sim.steps,
+            syncs_per_flush=n / max(f.flush_idx, 1))
+    return totals
+
+
+SWEEP_AXES = {"policy": ["fedfog", "rcs", "fogfaas", "vanilla"], "lr": [0.05, 0.1]}
+SWEEP_ROUNDS = 10
+SWEEP_SEEDS = (0, 1, 2)
+
+
+def phase_sweep(torch, sim_mod, smi) -> dict:
+    """run_sweep over both engines at the dense configuration: the policy ×
+    lr grid over three seeds, 10 rounds; seed 1 of two points equal to its
+    standalone run, group=False equal to group=True, aot_scanned /
+    run_scanned_with equal to run_scanned() on a peer of another seed; one
+    async fedbuff(8) sweep of two seeds, its seed 1 equal to the standalone
+    engine's. Returns the launches summed."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.sim import events as ev_mod
+    from repro_torch.sim import run_sweep
+
+    totals = {name: 0 for name in kernel_counters()}
+    totals["robust_kernel"] = 0
+    cfg = sim_mod.SimulatorConfig(rounds=SWEEP_ROUNDS, use_pallas_agg=True)
+
+    def sweep(**kw):
+        torch.cuda.synchronize()
+        zero_counts()
+        tm = {}
+        t0 = time.perf_counter()
+        res = run_sweep(cfg, seeds=SWEEP_SEEDS[:kw.pop("n_seeds", 3)], device="cuda",
+                        timings=tm, **kw)
+        sec = time.perf_counter() - t0
+        ln = read_counts()
+        for k, v in ln.items():
+            totals[k] += v
+        return res, ln, sec, tm
+
+    res, ln, sec, tm = sweep(axes=SWEEP_AXES)
+    runs = len(res.configs) * len(res.seeds)
+    expect_launches(ln, delta_pipeline_apply=runs * SWEEP_ROUNDS, delta_pipeline_partial=0,
+                    delta_sq_norms=0, fedavg_apply=0)
+    check(all(np.isfinite(v).all() for v in res.history.values()), "sweep: not finite")
+    say("sweep", engine="scan", points=len(res.configs), seeds=len(res.seeds),
+        rounds=SWEEP_ROUNDS, groups=tm["n_groups"], k3_launches=ln["delta_pipeline_apply"],
+        wall_s=sec, wall_s_per_point_seed=sec / runs,
+        final_accuracy_mean=[round(float(x), 4) for x in res.final("accuracy").mean(1)],
+        card=repr(smi))
+    for g in (0, 5):
+        h = sim_mod.FedFogSimulator(dc.replace(cfg, seed=1, **res.configs[g]),
+                                    device="cuda").run_scanned()
+        same = all(np.array_equal(res.history[k][g, 1], np.asarray(h[k]))
+                   for k in res.history)
+        check(same, f"sweep point {res.configs[g]} seed 1 differs from its standalone run")
+        say("sweep", check=f"seed 1 of {res.configs[g]} == standalone run_scanned()",
+            bitwise_equal=same)
+    flat, _, sec_flat, _ = sweep(axes=SWEEP_AXES, group=False)
+    same = all(np.array_equal(res.history[k], flat.history[k]) for k in res.history)
+    check(same, "sweep: group=False differs from group=True")
+    say("sweep", check="group=False == group=True", bitwise_equal=same, ungrouped_wall_s=sec_flat)
+    prog = sim_mod.FedFogSimulator(cfg, device="cuda", defer_state=True).aot_scanned()
+    for s in (0, 1):
+        c = dc.replace(cfg, seed=s)
+        a = sim_mod.FedFogSimulator(c, device="cuda").run_scanned_with(prog)
+        b = sim_mod.FedFogSimulator(c, device="cuda").run_scanned()
+        check(a == b, f"run_scanned_with differs from run_scanned() at seed {s}")
+        say("sweep", check=f"aot_scanned (seed 0) + run_scanned_with (seed {s}) == "
+            "run_scanned()", bitwise_equal=True)
+    acfg = ev_mod.AsyncConfig.fedbuff(8)
+    ares, ln, sec, tm = sweep(engine="async", async_cfg=acfg, n_seeds=2)
+    flushes = int(ares.metric("valid").sum())
+    expect_launches(ln, delta_pipeline_apply=flushes, delta_pipeline_partial=0)
+    h = ev_mod.AsyncFedFogSimulator(dc.replace(cfg, seed=1),
+                                    dc.replace(acfg, max_dispatches=SWEEP_ROUNDS),
+                                    device="cuda").run()
+    nf = h["num_flushes"]
+    same = all(np.array_equal(ares.metric(k)[0, 1, :nf], np.asarray(h[k]))
+               for k in ("accuracy", "t_ms", "num_aggregated", "energy_j", "mean_staleness"))
+    check(same and int(ares.metric("valid")[0, 1].sum()) == nf,
+          "async sweep seed 1 differs from the standalone engine's run")
+    say("sweep", engine="async", async_cfg="fedbuff(8)", seeds=2, dispatches=SWEEP_ROUNDS,
+        flushes=flushes, k3_launches=ln["delta_pipeline_apply"], wall_s=sec,
+        wall_s_per_seed=sec / 2, seed1_equals_standalone=same, card=repr(smi))
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2006,6 +2291,7 @@ def main() -> int:
     from repro_torch.kernels.wkv6.wkv6 import SOURCE as WKV_SRC
     from repro_torch.kernels.wkv6.wkv6 import library as wkv_library
 
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     _build.build_libraries({"fedfog_delta_pipeline": [cu.SOURCE], FA_LIB: [FA_SRC],
                             PA_LIB: [PA_SRC], WKV_LIB: [WKV_SRC]})
@@ -2044,17 +2330,22 @@ def main() -> int:
     for entry in k6_entries:
         say("build", **entry)
 
+    say("phase", name="build", seconds=time.perf_counter() - t_phase)
+
     # 3. kernels against their plain versions, then timing
+    t_phase = time.perf_counter()
     kernels = {k["name"]: k for k in phase_kernels(torch, dp)}
     kernels.update((k["name"], k) for k in phase_attention_kernels(torch))
     k6 = phase_wkv6_kernel(torch)
     kernels[k6["name"]] = k6
+    say("phase", name="kernels", seconds=time.perf_counter() - t_phase)
 
     # 4. the slices: the port's main paths; K1 is on none of them, and its
     # launches are summed over every counted run
     from repro_torch.fl import simulator as sim_mod
 
     k1_launches = 0
+    t_phase = time.perf_counter()
     run_slice(torch, sim_mod, 1)  # warm-up: cuBLAS handles, allocator
     hist, launches, _, seconds, peak = run_slice(torch, sim_mod, 20)
     expect_launches(launches, delta_pipeline_apply=20, delta_pipeline_partial=0,
@@ -2107,23 +2398,45 @@ def main() -> int:
         say("slice", path=repr(name), rounds=3, launches=ln, init_s=ini,
             ms_per_round=sec / 3 * 1e3, accuracy=[round(a, 4) for a in h["accuracy"]])
 
+    say("phase", name="slices", seconds=time.perf_counter() - t_phase)
+
     # the robustness path: attacks, HAR, faults, the quorum carry-over, the
     # host synchronisations and a tap
     t0 = time.perf_counter()
     rob = phase_robustness(torch, sim_mod, smi)
     say("robustness", phase_s=time.perf_counter() - t0)
+    say("phase", name="robustness", seconds=time.perf_counter() - t0)
     k1_launches += rob["fedavg_apply"]
     kernels["delta_pipeline_apply"]["robustness_launches"] = rob["delta_pipeline_apply"]
     kernels["delta_pipeline_apply"]["robust_kernel_launches"] = rob["robust_kernel"]
     kernels["delta_pipeline_partial"]["robustness_launches"] = rob["delta_pipeline_partial"]
 
+    # the asynchronous event engine (K3 on its staleness route, K4 per fog,
+    # robust_kernel under median), then run_sweep over both engines
+    t0 = time.perf_counter()
+    asy = phase_async(torch, sim_mod, smi)
+    say("phase", name="async", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    swp = phase_sweep(torch, sim_mod, smi)
+    say("phase", name="sweep", seconds=time.perf_counter() - t0)
+    for key, counts in (("async", asy), ("sweep", swp)):
+        k1_launches += counts["fedavg_apply"]
+        kernels["delta_pipeline_apply"][f"{key}_launches"] = counts["delta_pipeline_apply"]
+        kernels["delta_pipeline_apply"][f"{key}_robust_kernel_launches"] = \
+            counts["robust_kernel"]
+        kernels["delta_pipeline_partial"][f"{key}_launches"] = counts["delta_pipeline_partial"]
+
     # the serving slices: llama (K5 per admission, K7 per decode step), then
     # rwkv6 (K6 per layer of every admission)
+    t0 = time.perf_counter()
     launches = phase_serving(torch)
+    say("phase", name="serving", seconds=time.perf_counter() - t0)
     k1_launches += launches["fedavg_apply"]
     kernels["flash_attention_fwd"]["launches"] = launches["flash_attention_fwd"]
     kernels["paged_attention_fwd"]["launches"] = launches["paged_attention_fwd"]
+    t0 = time.perf_counter()
     launches = phase_serving_rwkv6(torch)
+    say("phase", name="serving_rwkv6", seconds=time.perf_counter() - t0)
     k1_launches += launches["fedavg_apply"]
     kernels["wkv6_fwd"]["launches"] = launches["wkv6_fwd"]
     kernels["fedavg_apply"]["launches"] = k1_launches

@@ -15,6 +15,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.random import flush_context
+
 IMG = 28
 
 
@@ -124,10 +126,12 @@ def client_histogram(cfg: EmnistLikeConfig, draws, n: int, round_idx, ids=None):
 
 def eval_batch(
     cfg: EmnistLikeConfig, draws, round_idx: int, batch: int,
-    templates: torch.Tensor,
+    templates: torch.Tensor, uses: int = 0,
 ):
-    """IID test split (uniform labels): (images (batch, 784), labels)."""
-    labels = draws.randint("eval.labels", (batch,), cfg.num_classes, round=round_idx)
-    noise = draws.normal("eval.noise", (batch, IMG * IMG), round=round_idx)
+    """IID test split (uniform labels): (images (batch, 784), labels);
+    ``uses`` keys a repeat flush's batch (``random.flush_context``)."""
+    ctx = flush_context(round_idx, uses)
+    labels = draws.randint("eval.labels", (batch,), cfg.num_classes, **ctx)
+    noise = draws.normal("eval.noise", (batch, IMG * IMG), **ctx)
     temps = templates.reshape(cfg.num_classes, IMG * IMG)[labels]
     return (temps + noise * cfg.noise).to(torch.float32), labels

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.emnist_like import _effective_epoch, _prior
+from repro_torch.random import flush_context
 
 WINDOW = 128
 CHANNELS = 9
@@ -97,15 +98,18 @@ def client_histogram(cfg: HarLikeConfig, draws, n: int, round_idx, ids=None):
     return client_label_prior(cfg, draws, n, round_idx, ids)
 
 
-def eval_batch(cfg: HarLikeConfig, draws, round_idx: int, batch: int, class_params):
+def eval_batch(cfg: HarLikeConfig, draws, round_idx: int, batch: int, class_params,
+               uses: int = 0):
     """IID test split (uniform labels, no client gain or phase offset):
-    (signals (batch, WINDOW·CHANNELS), labels)."""
+    (signals (batch, WINDOW·CHANNELS), labels); ``uses`` keys a repeat
+    flush's batch (``random.flush_context``)."""
     freqs, amps, phases = class_params
-    labels = draws.randint("eval.labels", (batch,), NUM_CLASSES, round=round_idx)
+    ctx = flush_context(round_idx, uses)
+    labels = draws.randint("eval.labels", (batch,), NUM_CLASSES, **ctx)
     t = _time_axis(freqs.device)[:, None]
     sig = amps[labels][:, None, :] * torch.sin(
         freqs[labels][:, None, :] * t + phases[labels][:, None, :]
     )
-    noise = draws.normal("eval.noise", (batch, WINDOW * CHANNELS), round=round_idx)
+    noise = draws.normal("eval.noise", (batch, WINDOW * CHANNELS), **ctx)
     sig = sig.reshape(batch, WINDOW * CHANNELS) + cfg.noise * noise
     return sig.to(torch.float32), labels

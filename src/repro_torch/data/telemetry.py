@@ -9,6 +9,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.types import ClientTelemetry
+from repro_torch.random import flush_context
 
 Array = torch.Tensor
 
@@ -77,8 +78,10 @@ def step_telemetry(
     draws,
     *,
     round: int,
+    uses: int = 0,
 ) -> ClientTelemetry:
-    z = draws.normal("telemetry.ar", (2, cfg.num_clients), round=round)
+    z = draws.normal("telemetry.ar", (2, cfg.num_clients),
+                     **flush_context(round, uses))
 
     def ar(x, noise):
         mean = 0.7

@@ -46,19 +46,21 @@ _EPS = 1e-12  # matches core.aggregation / kernels.delta_pipeline
 # --------------------------------------------------------------------- #
 # population / cohort sampling
 # --------------------------------------------------------------------- #
-def stratified_cohort(draws, population: int, cohort: int, *, round: int):
+def stratified_cohort(draws, population: int, cohort: int, *, round: int,
+                      site: str = "cohort"):
     """Sample ``cohort`` distinct client ids from ``[0, population)``.
 
     Stratum ``i`` is ``[⌊i·M/C⌋, ⌊(i+1)·M/C⌋)`` and contributes one
-    uniform id (the ``cohort`` draw of ``round``), so the ids come back
-    sorted and distinct. With ``population == cohort`` every stratum has
-    width 1 and the sample is ``arange(cohort)``.
+    uniform id (the ``site`` draw of ``round``: ``cohort`` for a round,
+    ``cohort.async`` for an async dispatch's candidates), so the ids come
+    back sorted and distinct. With ``population == cohort`` every stratum
+    has width 1 and the sample is ``arange(cohort)``.
     """
     bounds = torch.arange(cohort + 1, dtype=torch.int64, device=draws.device)
     bounds = (bounds * population) // cohort
     lo, hi = bounds[:-1], bounds[1:]
     width = torch.clamp(hi - lo, min=1)
-    return lo + draws.randint("cohort", (cohort,), width, round=round)
+    return lo + draws.randint(site, (cohort,), width, round=round)
 
 
 def _fields(obj) -> dict:

@@ -13,6 +13,7 @@ import math
 import torch
 
 from repro_torch import tree
+from repro_torch.random import flush_context
 
 
 def fuse_clients(stacked):
@@ -80,8 +81,11 @@ def _segment_ids(sizes: tuple[int, ...], device: torch.device) -> torch.Tensor:
     )
 
 
-def fused_gaussian_noise(draws, std: float, sizes: tuple[int, ...], *, round: int):
+def fused_gaussian_noise(draws, std: float, sizes: tuple[int, ...], *, round: int,
+                         uses: int = 0):
     """(P,) DP noise vector matching ``core.privacy.gaussian_mechanism``:
-    the same ``dp`` normals, leaf by leaf, times ``std``."""
-    z = draws.normal("dp", (sum(sizes),), segments=tuple(sizes), round=round)
+    the same ``dp`` normals, leaf by leaf, times ``std``; ``uses`` keys a
+    repeat flush's draw (``random.flush_context``)."""
+    z = draws.normal("dp", (sum(sizes),), segments=tuple(sizes),
+                     **flush_context(round, uses))
     return std * z

@@ -20,7 +20,15 @@ Two engines share ONE round function (``_round``):
 
   * ``run()``         — per-round loop, metrics moved to the host each round.
   * ``run_scanned()`` — the same rounds with the per-round metrics stacked
-                        on the device and moved to the host ONCE at the end.
+                        on the device and moved to the host ONCE at the end;
+                        ``aot_scanned()`` / ``run_scanned_with()`` split it
+                        into a program checked against a same-shape peer
+                        and its run (eager: nothing is compiled).
+
+The event-driven engine (``sim.events.AsyncFedFogSimulator``) composes
+this class and shares its state init, histograms, participation, local
+training, cost model and eval; ``sim.sweep.run_sweep`` drives either
+engine over a configuration grid and a seed batch.
 
 The round reads nothing back from the device (no ``.item()``, no
 ``.cpu()``) and keeps static shapes: participation is a mask over the
@@ -34,9 +42,7 @@ delta-pipeline kernel on CUDA tensors (``kernels.delta_pipeline``: K3,
 or one K4 per fog); on CPU tensors the same entry points run their plain
 versions.
 
-Random draws come from a draw provider (``repro_torch.random``);
-``aot_scanned`` / ``run_scanned_with``, not ported yet, raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+Random draws come from a draw provider (``repro_torch.random``).
 """
 from __future__ import annotations
 
@@ -81,9 +87,6 @@ from repro_torch.random import TorchDraws
 from repro_torch.sim.des import FaasSimConfig, RoundCostModel
 from repro_torch.sim.faults import config as faults_config
 from repro_torch.sim.faults import inject as faults_inject
-
-_TODO = "not ported yet: see ROADMAP.md, queue 1, item 7 ({})"
-
 
 def _phase(name: str):
     """A profiler range ``round.<name>`` around a phase of ``_round`` while
@@ -385,10 +388,11 @@ class FedFogSimulator:
         up_bytes = wire_bytes_per_param(cfg.compression) * self.n_params
         return workload, up_bytes, 2.0 * self.n_params
 
-    def _eval_accuracy(self, data_cfg, params, round_idx: int):
-        """Held-out accuracy on a 512-sample eval batch."""
+    def _eval_accuracy(self, data_cfg, params, round_idx: int, uses: int = 0):
+        """Held-out accuracy on a 512-sample eval batch; ``uses`` keys the
+        batch of a repeat flush of the async engine."""
         x, y = self._data.eval_batch(data_cfg, self.draws, round_idx, 512,
-                                     self._task_consts)
+                                     self._task_consts, uses)
         logits = mlp_apply(params, x)
         return torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
 
@@ -606,11 +610,11 @@ class FedFogSimulator:
         self.params, self.sched_state, self.telemetry = params, sched, tel
         return self._finalize(history, rounds)
 
-    def run_scanned(self, rounds: int | None = None) -> dict[str, Any]:
-        """All rounds with the per-round metrics stacked on the device and
-        transferred to the host once at the end. Same round function and
-        draws as ``run()``, so the histories agree."""
-        rounds = int(rounds or self.cfg.rounds)
+    def _scan_rounds(self, rounds: int):
+        """``rounds`` rounds from the instance's state, which they advance;
+        returns the metric names and their (rounds, K) float64 stack, still
+        on the device (``run_scanned``'s body, and one seed of
+        ``sim.sweep.run_sweep``)."""
         self._ensure_state()
         params, sched, tel = self.params, self.sched_state, self.telemetry
         per_round = []
@@ -624,13 +628,64 @@ class FedFogSimulator:
         names = list(per_round[0]) if per_round else []
         stacked = torch.stack(
             [torch.stack([m[k].to(torch.float64) for k in names]) for m in per_round]
-        ) if per_round else torch.zeros((0, 0))
+        ) if per_round else torch.zeros((0, 0), dtype=torch.float64)
+        return names, stacked
+
+    def run_scanned(self, rounds: int | None = None) -> dict[str, Any]:
+        """All rounds with the per-round metrics stacked on the device and
+        transferred to the host once at the end. Same round function and
+        draws as ``run()``, so the histories agree."""
+        rounds = int(rounds or self.cfg.rounds)
+        names, stacked = self._scan_rounds(rounds)
         host = stacked.cpu().tolist()  # the single device -> host transfer
         history = {k: [row[i] for row in host] for i, k in enumerate(names)}
         return self._finalize(history, rounds)
 
-    def aot_scanned(self, rounds: int | None = None):
-        raise NotImplementedError(_TODO.format("aot_scanned / run_scanned_with"))
+    def aot_scanned(self, rounds: int | None = None) -> "ScannedProgram":
+        """The scanned run as a program that a same-shape peer can run
+        (``run_scanned_with``). The JAX package compiles the scan here; the
+        port runs eagerly and compiles nothing, so the program records
+        what the compiled one would be bound to: the configuration (the
+        sweep's structural remainder and numeric values, the seed left
+        out), the round count and the device."""
+        if self.tap is not None:
+            raise ValueError(
+                "aot_scanned() does not support metric taps; build this "
+                "simulator with tap=None (taps stream via run_scanned())"
+            )
+        return ScannedProgram(_program_key(self.cfg), int(rounds or self.cfg.rounds),
+                              str(self.device))
 
-    def run_scanned_with(self, compiled, rounds: int | None = None):
-        raise NotImplementedError(_TODO.format("aot_scanned / run_scanned_with"))
+    def run_scanned_with(self, program: "ScannedProgram",
+                         rounds: int | None = None) -> dict[str, Any]:
+        """``run_scanned`` through a program from ``aot_scanned`` (this
+        instance's or a same-shape peer's): the same rounds on this
+        instance's state, so the history equals its ``run_scanned()``.
+        Raises ``ValueError`` for a program made for another configuration,
+        device or round count."""
+        rounds = int(rounds or program.rounds)
+        mine = (_program_key(self.cfg), rounds, str(self.device))
+        theirs = (program.config, program.rounds, program.device)
+        for what, a, b in zip(("configuration", "round count", "device"), mine, theirs):
+            if a != b:
+                raise ValueError(
+                    f"the program was made for another {what} ({b!r}, not {a!r})")
+        return self.run_scanned(rounds)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScannedProgram:
+    """What ``aot_scanned`` returns: the structural configuration with its
+    numeric values (``sim.sweep._factor_sim`` of the configuration at seed
+    0), the round count and the device."""
+
+    config: tuple
+    rounds: int
+    device: str
+
+
+def _program_key(cfg: SimulatorConfig) -> tuple:
+    from repro_torch.sim.sweep import _factor_sim
+
+    struct, num = _factor_sim(dataclasses.replace(cfg, seed=0))
+    return struct, tuple(sorted(num.items()))

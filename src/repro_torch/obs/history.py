@@ -1,5 +1,6 @@
-"""One history schema for every engine (port of ``finalize_history`` and
-``summary_metrics`` from ``repro/obs/history.py``)."""
+"""One history schema for every engine (port of ``finalize_history``,
+``summary_metrics`` and ``assemble_async_history`` from
+``repro/obs/history.py``)."""
 from __future__ import annotations
 
 from typing import Any, Mapping
@@ -45,3 +46,20 @@ def summary_metrics(history: Mapping[str, Any]) -> dict[str, Any]:
         "fault_lost_deadline", "queue_dropped",
     )
     return {k: history[k] for k in keys if k in history}
+
+
+def assemble_async_history(
+    m_flush: Mapping[str, Any],
+    m_dispatch: Mapping[str, Any],
+    n_flushes: int,
+    n_dispatches: int,
+) -> dict[str, Any]:
+    """The async engine's fixed-capacity metric arrays (host arrays),
+    trimmed to the flush and dispatch counts, the dispatch channels named
+    ``dispatch_*``; ``valid``, the padding marker, is dropped."""
+    history: dict[str, Any] = {
+        k: [float(x) for x in v[:n_flushes]] for k, v in m_flush.items() if k != "valid"
+    }
+    for k, v in m_dispatch.items():
+        history[f"dispatch_{k}"] = [float(x) for x in v[:n_dispatches]]
+    return history

@@ -43,7 +43,33 @@ site plus the context that keys it (``round``, ``epoch``, ``index``):
   ``faults.corrupt``            (C,) uniforms of the corrupted payloads
   ``faults.noise``              (C, P) normals of the corruption, leaf by
                                 leaf
+  ``churn.init``                (C,) uniforms of the initial presence
+  ``churn``                     (C,) uniforms of dispatch ``round``'s
+                                arrivals and departures
+  ``straggler``                 (C,) normals of dispatch ``round``'s
+                                lognormal latency tail
+  ``cohort.async``              (C,) offsets of dispatch ``round``'s
+                                candidate cohort (population mode)
+  ``async.faults.timeout|crash|drop``  (C,) uniforms of dispatch
+                                ``round``'s first attempts
+  ``async.faults.partition``    () and (C,) uniforms of dispatch ``round``'s
+  ``|partition_frac``           partition
+  ``async.faults.corrupt``      (C,) uniforms of the corrupted payloads
+  ``async.faults.noise``        (C, P) normals of the corruption, one block
+  ``async.faults.fog``          (F,) uniforms of the fog outages
+  ``async.faults.retry``        (3,) uniforms (crash, drop, corrupt) of
+                                attempt ``attempt`` of client ``index``'s
+                                retry chain, admitted at dispatch ``round``
+  ``async.faults.retry_noise``  (P,) normals of that attempt's corruption
   ============================  ==========================================
+
+The async engine (``sim.events.engine``) keys its dispatch draws by the
+dispatch index as ``round``, exactly as ``_round`` keys a round's, so a
+dispatch makes the draws of the round of the same index. A flush draws
+``dp``, ``telemetry.ar`` and ``eval.*`` with the context of
+:func:`flush_context`: the first flush after dispatch ``d`` takes round
+``d``'s draws as they are (cohort mode reproduces the synchronous round),
+a repeat flush before the next dispatch adds its use count ``uses``.
 
 Production (:class:`TorchDraws`) seeds a fresh ``torch.Generator`` on the
 simulator's device from a hash of ``(seed, site, context)``: every block
@@ -82,6 +108,12 @@ import torch
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _GAMMA_TRIES = 16
+
+
+def flush_context(round: int, uses: int) -> dict:
+    """The context of a draw made at a flush: dispatch ``round``'s own for
+    its first flush (``uses`` 0), with ``uses`` added for a repeat one."""
+    return {"round": round, "uses": uses} if uses else {"round": round}
 
 
 def _key(*parts) -> int:

@@ -1,4 +1,17 @@
-"""Simulation stack of the port: the shared §IV.F cost model."""
-from repro_torch.sim.des import FaasSimConfig, RoundCostModel, RoundCosts
+"""Simulation stack of the port: the shared §IV.F cost model and the
+sweep runner.
 
-__all__ = ["FaasSimConfig", "RoundCostModel", "RoundCosts"]
+    des.py   — ``RoundCostModel``, the latency / energy / cold-start model
+               of both engines.
+    sweep.py — ``run_sweep``: config grid × seed batch over the scanned
+               engine or the event-driven one (``engine="async"``).
+    events/  — the event-driven asynchronous engine. Imported as
+               ``repro_torch.sim.events`` and not re-exported here: its
+               engine imports ``repro_torch.fl.simulator``, which imports
+               ``repro_torch.sim.des``, and the package import must not
+               close that cycle.
+"""
+from repro_torch.sim.des import FaasSimConfig, RoundCostModel, RoundCosts
+from repro_torch.sim.sweep import SweepResult, run_sweep
+
+__all__ = ["FaasSimConfig", "RoundCostModel", "RoundCosts", "SweepResult", "run_sweep"]

@@ -90,18 +90,21 @@ def _fires(draws, site, rate, n, **ctx):
 def attempt_failures(
     fc: FaultConfig, draws, alive: torch.Tensor, cold: torch.Tensor,
     part_cut: torch.Tensor | None, attempt: int, *, round: int, attempts: int,
+    prefix: str = "faults",
 ) -> torch.Tensor:
     """(N,) bool — which still-alive invocations fail on this attempt
-    (``attempt`` of ``attempts``, 0-based)."""
+    (``attempt`` of ``attempts``, 0-based), from the ``<prefix>.crash``,
+    ``.drop`` and ``.timeout`` sites (``async.faults`` for the first
+    attempts of an async dispatch)."""
     n = alive.shape[0]
     ctx = dict(round=round, index=attempt, attempts=attempts)
     fail = torch.zeros_like(alive)
-    for site, rate in (("faults.crash", fc.crash_rate), ("faults.drop", fc.drop_rate)):
-        f = _fires(draws, site, rate, n, **ctx)
+    for site, rate in (("crash", fc.crash_rate), ("drop", fc.drop_rate)):
+        f = _fires(draws, f"{prefix}.{site}", rate, n, **ctx)
         if f is not None:
             fail = fail | f
     if attempt == 0:
-        f = _fires(draws, "faults.timeout", fc.timeout_rate, n, **ctx)
+        f = _fires(draws, f"{prefix}.timeout", fc.timeout_rate, n, **ctx)
         if f is not None:
             fail = fail | (cold & f)
         if part_cut is not None:

@@ -21,7 +21,17 @@ the JAX package can be held against each other on identical data:
   * faults: ``fold_in(k, 8)`` split into ``(plan, noise)``; ``plan`` split
     5 ways into ``(attempts, partition, partition_frac, fog, corrupt)``;
     attempt ``a`` of ``A`` takes ``split(attempts, A)[a]``, split 3 ways
-    into ``(timeout, crash, drop)``; ``noise`` is split once per leaf.
+    into ``(timeout, crash, drop)``; ``noise`` is split once per leaf;
+  * the async engine (``repro/sim/events/engine.py``): dispatch ``d`` takes
+    round ``d``'s key ``k`` and its 6-way split, plus ``fold_in(k, 101)``
+    (``churn``), ``102`` (``straggler``), ``103`` (``cohort.async``) and
+    ``104`` (``async.faults.*``, split 7 ways into ``(attempt0, partition,
+    partition_frac, corrupt, noise, fog, client)``; attempt 0 splits 3 ways
+    into ``(timeout, crash, drop)``; the retry of client ``c``'s attempt
+    ``a`` takes ``split(fold_in(fold_in(client, c), a))`` as ``(retry,
+    retry_noise)``); ``churn.init`` is ``fold_in(PRNGKey(seed + 100),
+    2718)``. A flush consumes its dispatch's ``dp`` / ``tel`` / ``eval``
+    keys as they are when ``uses`` is 0 and ``fold_in(key, uses)`` after.
 
 Every per-client draw takes ``ids``, the client ids of the rows, which
 default to ``arange(n)`` (the dense registry); the prior and the drift
@@ -92,6 +102,16 @@ def _priors(seed, cids, epochs, alpha, k, offset):
 
 _FAULT_PLAN = ("attempts", "partition", "partition_frac", "fog", "corrupt")
 _ATTEMPT_SITES = {"faults.timeout": 0, "faults.crash": 1, "faults.drop": 2}
+_ASYNC_FOLDS = {"churn": 101, "straggler": 102, "cohort.async": 103}
+_ASYNC_FAULTS = ("attempt0", "partition", "partition_frac", "corrupt", "noise",
+                 "fog", "client")
+_ASYNC_ATTEMPT0 = {"async.faults.timeout": 0, "async.faults.crash": 1,
+                   "async.faults.drop": 2}
+
+
+def _fresh(key, uses):
+    """A flush's key: the dispatch's own at ``uses`` 0, folded after."""
+    return key if not uses else jax.random.fold_in(key, uses)
 
 
 class JaxDraws:
@@ -113,7 +133,18 @@ class JaxDraws:
             self._rounds[r]["faults.noise"] = k_noise
             self._rounds[r].update(zip(
                 (f"faults.{x}" for x in _FAULT_PLAN), jax.random.split(k_plan, 5)))
+            for site, fold in _ASYNC_FOLDS.items():
+                self._rounds[r][site] = jax.random.fold_in(k, fold)
+            self._rounds[r].update(zip(
+                (f"async.faults.{x}" for x in _ASYNC_FAULTS),
+                jax.random.split(jax.random.fold_in(k, 104), 7)))
         return self._rounds[r][name]
+
+    def _retry_keys(self, round, client, attempt):
+        """(outcome, noise) keys of attempt ``attempt`` of the retry chain
+        of ``client``, admitted at dispatch ``round``."""
+        k = jax.random.fold_in(self.round_key(round, "async.faults.client"), client)
+        return jax.random.split(jax.random.fold_in(k, attempt))
 
     def _leafwise(self, key, shape, segments):
         """(C, P) normals, one key of ``split(key, len(segments))`` per
@@ -129,7 +160,7 @@ class JaxDraws:
 
     # ------------------------------------------------------------------ #
     def normal(self, site, shape, *, segments=None, round=None, index=None,
-               epoch=None, ids=None):
+               epoch=None, ids=None, uses=0, attempt=None):
         shape = tuple(shape)
         if site == "init.mlp":
             key = jax.random.PRNGKey(self.seed)
@@ -147,25 +178,42 @@ class JaxDraws:
             return _t(_client_noise(self.round_key(round, "data"), n_draw, dim,
                                     _ids(ids, n)))
         if site == "eval.noise":
-            _, k2 = jax.random.split(self.round_key(round, "eval"))
+            _, k2 = jax.random.split(_fresh(self.round_key(round, "eval"), uses))
             return _t(jax.random.normal(k2, shape))
+        if site in ("straggler", "async.faults.noise"):
+            return _t(jax.random.normal(self.round_key(round, site), shape))
+        if site == "async.faults.retry_noise":
+            return _t(jax.random.normal(self._retry_keys(round, index, attempt)[1],
+                                        shape))
         if site in ("attack", "faults.noise"):
             return self._leafwise(self.round_key(round, site), shape, segments)
         if site == "telemetry.ar":
-            k1, k2 = jax.random.split(self.round_key(round, "tel"))
+            k1, k2 = jax.random.split(_fresh(self.round_key(round, "tel"), uses))
             n = shape[1]
             return _t(jnp.stack([jax.random.normal(k1, (n,)),
                                  jax.random.normal(k2, (n,))]))
         if site == "dp":
-            keys = jax.random.split(self.round_key(round, "dp"), len(segments))
+            keys = jax.random.split(_fresh(self.round_key(round, "dp"), uses),
+                                    len(segments))
             return _t(jnp.concatenate(
                 [jax.random.normal(k, (s,)) for k, s in zip(keys, segments)]
             ))
         raise KeyError(site)
 
     def uniform(self, site, shape, lo, hi, *, round=None, index=None,
-                attempts=None):
-        if site in _ATTEMPT_SITES:
+                attempts=None, attempt=None):
+        if site == "churn.init":
+            key = jax.random.fold_in(jax.random.PRNGKey(self.seed + 100), 2718)
+        elif site == "churn":
+            key = self.round_key(round, site)
+        elif site in _ASYNC_ATTEMPT0:
+            key = jax.random.split(self.round_key(round, "async.faults.attempt0"),
+                                   3)[_ASYNC_ATTEMPT0[site]]
+        elif site == "async.faults.retry":
+            key = self._retry_keys(round, index, attempt)[0]
+        elif site.startswith("async.faults."):
+            key = self.round_key(round, site)
+        elif site in _ATTEMPT_SITES:
             key = jax.random.split(self.round_key(round, "faults.attempts"),
                                    attempts)[index]
             key = jax.random.split(key, 3)[_ATTEMPT_SITES[site]]
@@ -190,15 +238,15 @@ class JaxDraws:
             assert site == "har.gain", site
         return _t(jax.vmap(lambda x: jax.random.normal(x, (k,)))(keys))
 
-    def randint(self, site, shape, high, *, round=None):
+    def randint(self, site, shape, high, *, round=None, uses=0):
         if site == "profiles.class":
             key = self._init_key(30, 0, 5)
         elif site == "eval.labels":
-            key, _ = jax.random.split(self.round_key(round, "eval"))
-        elif site == "cohort":
+            key, _ = jax.random.split(_fresh(self.round_key(round, "eval"), uses))
+        elif site in ("cohort", "cohort.async"):
             hi = jnp.asarray(np.asarray(high), jnp.int32)
             return _t(jax.random.randint(
-                self.round_key(round, "cohort"), tuple(shape), jnp.zeros_like(hi), hi
+                self.round_key(round, site), tuple(shape), jnp.zeros_like(hi), hi
             )).to(torch.int64)
         else:
             raise KeyError(site)

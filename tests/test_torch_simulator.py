@@ -149,14 +149,6 @@ def test_unknown_configuration_values_raise(override):
         FedFogSimulator(SimulatorConfig(**SMALL, **override), device="cpu")
 
 
-def test_unported_entry_points_raise():
-    sim = FedFogSimulator(SimulatorConfig(**SMALL), device="cpu", defer_state=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.aot_scanned()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.run_scanned_with(None)
-
-
 def test_default_device_is_cuda():
     """Entry points run on CUDA unless asked for the CPU; without a card
     they raise instead of moving to the CPU."""
