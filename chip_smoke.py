@@ -175,8 +175,28 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 per decode step, tokens per wall second, init s, peak bytes
                 and the share of first tokens equal to the plain prefill's
                 printed;
+                train: launch/train.py's loop (fl.round) on full-width
+                llama3.2-1b in bf16 (16 layers, d 2048, P = 1,235,814,400,
+                random weights from a seed), 32 clients, 4 slots, 2 local
+                steps of 4 x 128 tokens: (a) --pallas-agg, 3 rounds, K3
+                once a round on its momentum route, round 3's K3 outputs
+                held against the plain version window by window over the
+                whole (4, P) buffer (4.94e9 elements, past 2^32) to the
+                momentum gates' tolerance, 0 host synchronisations inside
+                each round, every loss finite, K3 / K4 / K2 timed at this
+                shape beside their byte bounds; (c) one round with clip
+                1.0, int8 and DP noise: K2 and K3 once, K2's norms of the
+                round's buffer within 1e-5 of the plain version's; (b)
+                --fog-nodes 2 --population 1000000, 3 rounds: K4 twice a
+                round, each fog's partial of round 3 bit for bit its plain
+                version (also on nonzero weights); (d) --scale tiny: a
+                checkpoint saved and restored, its next round bit for bit
+                the uninterrupted one's; ms per round, tokens per wall
+                second, the model FLOP share and peak bytes printed beside
+                the card's name and power limit;
   5. result   — the kernels' JSON line (K3 and K4 with their async and
-                sweep launches beside the main paths'), nvidia-smi's line
+                sweep launches beside the main paths', K2-K4 with the
+                train phase's launches and times), nvidia-smi's line
                 and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds (``[phase] name=... seconds=...``).
@@ -2250,6 +2270,320 @@ def phase_sweep(torch, sim_mod, smi) -> dict:
     return totals
 
 
+# ---- the LM round: llama3.2-1b at full width through K3, K4 and K2 ---- #
+# launch/train.py's defaults: 32 clients, 4 slots, 2 local steps of 4
+# sequences of 128 tokens per slot.
+TRAIN_ARGV = ["--arch", "llama3.2-1b", "--scale", "full", "--pallas-agg", "--rounds", "3"]
+TRAIN_TOKENS = 4 * 4 * 2 * 128  # tokens trained per round
+TRAIN_WINDOW = 1 << 26  # columns per window of the plain comparisons
+
+
+class KernelTap:
+    """Wraps ``ops.delta_pipeline_apply`` / ``ops.delta_pipeline_partial``
+    (the round looks both up at call time) and, while ``armed``, keeps the
+    last call's inputs and, for K3, its outputs, which nothing writes
+    after the call; of K4's partial (summed into in place) it keeps every
+    4,096th column. Launches nothing of its own."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels.delta_pipeline import ops
+
+        self.torch, self.ops, self.armed = torch, ops, False
+        self.k3, self.k4 = None, []
+        self._apply, self._partial = ops.delta_pipeline_apply, ops.delta_pipeline_partial
+
+    def __enter__(self):
+        def apply(updates, *args, **kw):
+            outs = self._apply(updates, *args, **kw)
+            if self.armed:
+                self.k3 = dict(args=(updates,) + args, kw=kw, outs=outs)
+            return outs
+
+        def partial(updates, dm, **kw):
+            out = self._partial(updates, dm, **kw)
+            if self.armed:
+                self.k4.append(dict(updates=updates, dm=dm, kw=kw, sample=out[::4096].clone()))
+            return out
+
+        self.ops.delta_pipeline_apply, self.ops.delta_pipeline_partial = apply, partial
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.delta_pipeline_apply = self._apply
+        self.ops.delta_pipeline_partial = self._partial
+
+
+def train_rounds(torch, run, tap, rounds):
+    """Run ``rounds`` rounds of ``launch/train.py``'s loop on ``run`` (a
+    ``train.Run``), its round arming ``tap`` in the last one, the round's
+    host synchronisations counted and its wall time taken between two
+    device synchronisations. Returns (per-round records, launches)."""
+    from repro_torch.launch import train
+    from repro_torch.obs import MemoryTracker
+
+    fn, records = run.round_fn, []
+
+    def instrumented(state, batch):
+        tap.armed = len(records) == rounds - 1
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        syncs = count_syncs(torch, lambda: out.append(fn(state, batch)))
+        torch.cuda.synchronize()
+        records.append(dict(ms=(time.perf_counter() - t0) * 1e3, syncs=syncs))
+        tap.armed = False
+        return out[0]
+
+    run.round_fn = instrumented
+    run.args.rounds = run.start_round + rounds
+    tracker = MemoryTracker()
+    zero_counts()
+    train._train_loop(run, tracker)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    run.round_fn = fn
+    for rec, row in zip(records, [r for r in tracker.rows if r.get("event") == "round"]):
+        rec.update(loss=row["loss"], wall_ms=row["round_wall_s"] * 1e3)
+    return records, launches
+
+
+def windows(torch, p):
+    """Column windows covering [0, p)."""
+    return [(lo, min(lo + TRAIN_WINDOW, p)) for lo in range(0, p, TRAIN_WINDOW)]
+
+
+def hold_k3_momentum(torch, dp, rec) -> dict:
+    """K3's (new_flat, new_mu) of the round against the plain version on the
+    same inputs, window by window, to the momentum gates' tolerance (ATOL +
+    RTOL·|r − i|, i the input each output updates)."""
+    upd, base, mask, weights = rec["args"][:4]
+    kw = rec["kw"]
+    out, mu2 = rec["outs"]
+    c, p = upd.shape
+    check(kw["momentum"] is not None and kw["server_optimizer"] == "fedavgm",
+          "train: K3 not on its momentum route")
+    err = step = 0.0
+    for lo, hi in windows(torch, p):
+        r_out, r_mu = dp.delta_pipeline_ref(
+            upd[:, lo:hi], base[lo:hi], mask, weights, lr=kw["lr"],
+            momentum=kw["momentum"][lo:hi], server_optimizer=kw["server_optimizer"],
+            server_momentum=kw["server_momentum"], aggregator=kw["aggregator"],
+            trim_fraction=kw["trim_fraction"])
+        for o, r, i in ((out[lo:hi], r_out, base[lo:hi]), (mu2[lo:hi], r_mu,
+                                                            kw["momentum"][lo:hi])):
+            check(bool(torch.isfinite(o).all()), "train: K3 output not finite")
+            bad = (o - r).abs() > ATOL + RTOL * (r - i).abs()
+            check(not bool(bad.any()), f"train: K3 differs from plain in [{lo}, {hi})")
+            err = max(err, float((o - r).abs().max()))
+            step = max(step, float((r - i).abs().max()))
+    return dict(C=c, P=p, elements=c * p, past_2_32=c * p > 2**32,
+                row3_columns_past_2_32=max(0, p - (2**32 - (c - 1) * p)),
+                windows=len(windows(torch, p)), max_abs_err=err, max_abs_step=step,
+                atol=ATOL, rtol=f"{RTOL} of |step|")
+
+
+def hold_k4(torch, dp, cu, recs) -> dict:
+    """Each fog's K4 partial of the round: the kernel run again on the
+    round's own block equals the round's partial at its sampled columns,
+    and equals the plain version, window by window, bit for bit (the
+    streaming kernel's every-gate-off route); then the same on the block
+    with nonzero weights 1..C_local (a window of fresh clients rarely
+    passes the drift gate, so the round's own weights may all be 0)."""
+    for f, rec in enumerate(recs):
+        upd = rec["updates"]
+        ones = torch.arange(1, upd.shape[0] + 1, dtype=torch.float32, device=upd.device)
+        for dm in (rec["dm"], ones):
+            again = cu.delta_pipeline_partial_cuda(upd, dm, **rec["kw"])
+            if dm is rec["dm"]:
+                check(torch.equal(again[::4096], rec["sample"]),
+                      f"train: K4 fog {f} is not deterministic")
+            for lo, hi in windows(torch, upd.shape[1]):
+                plain = dp.delta_pipeline_partial_ref(upd[:, lo:hi], dm, **rec["kw"])
+                check(torch.equal(again[lo:hi], plain),
+                      f"train: K4 fog {f} differs from plain in [{lo}, {hi})")
+            del again
+    return dict(fogs=len(recs), C_local=recs[0]["updates"].shape[0],
+                P=recs[0]["updates"].shape[1],
+                round_weights=[rec["dm"].tolist() for rec in recs], equal=True)
+
+
+def lm_kernel_times(torch, dp, cu, upd, base, mask, weights, mu) -> dict:
+    """K3 (momentum route), K4 (one fog's half) and K2 at the LM's shape,
+    on the round's own buffer, beside their byte bounds."""
+    c, p = upd.shape
+    wn, cnt, pre, seg, tab = cu.pipeline_rows(
+        upd, mask, weights, None, 0.0, 0.1, clip_norm=0.0, compression="none",
+        topk_fraction=0.05, seg_sizes=None, aggregator="fedavg")
+    out, mu2 = torch.empty_like(base), torch.empty_like(mu)
+
+    def k3(i):
+        cu.launch_pipeline(upd, base, wn, cnt, pre, seg, tab, None, mu, out, mu2,
+                           lr=1.0, server_momentum=0.9, compression="none",
+                           aggregator="fedavg", server_optimizer="fedavgm")
+
+    half = upd[: c // 2]
+    dm = (mask.float() * weights)[: c // 2].contiguous()
+    out4 = torch.empty((p,), dtype=torch.float32, device=upd.device)
+    t = {
+        "k3": cuda_ms(k3, 10, 2),
+        "k4": cuda_ms(lambda i: cu.launch_partial(half, dm, None, None, None, out4,
+                                                  compression="none"), 10, 2),
+        "k2": cuda_ms(lambda i: cu.delta_sq_norms_cuda(upd), 10, 2),
+    }
+    b3 = 4 * (c * p + 4 * p + c)  # deltas, base, mu in, out, mu out, weights
+    b4 = 4 * (c // 2 * p + p + c // 2)
+    b2 = 4 * (c * p + c)
+    ops = {"k3": 2 * (c * p + 2 * p), "k4": 2 * (c // 2) * p, "k2": 2 * c * p}
+    res = {}
+    for k, b in (("k3", b3), ("k4", b4), ("k2", b2)):
+        bound = max(b / HBM_BYTES_PER_S, ops[k] / FP32_FLOP_PER_S) * 1e3
+        res[k] = dict(ms=t[k], bytes=b, bound_ms=bound, share_of_bound=bound / t[k],
+                      bound_by="bytes" if b / HBM_BYTES_PER_S >= ops[k] / FP32_FLOP_PER_S
+                      else "operations")
+    return res
+
+
+def phase_train(torch, smi) -> dict:
+    """The port's LM round (``launch/train.py``, ``fl.round``) on
+    full-width llama3.2-1b: (a) the kernel path, 3 rounds (K3 on its
+    momentum route, its outputs held against the plain version on the
+    round's own (4, P) buffer past 2^32 elements, no host synchronisation
+    in a round, finite losses); (b) the fog tier over a population of
+    10^6, 3 rounds (K4 twice a round, each partial held against the plain
+    version); (c) one round with clip, int8 and DP noise (K2 and K3 once,
+    K2's norms held); (d) a checkpoint saved and restored at --scale tiny
+    whose next round equals the uninterrupted one bit for bit. Returns
+    the launches of (a)-(c) and the kernels' times at the LM's shape."""
+    import dataclasses as dc
+    import gc
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree
+    from repro_torch.fl import make_round_fn
+    from repro_torch.kernels import delta_pipeline as dp
+    from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+    from repro_torch.launch import train
+    from repro_torch.obs import NoopTracker
+
+    totals = {name: 0 for name in kernel_counters()}
+    totals["robust_kernel"] = 0
+
+    def add(ln):
+        for k, v in ln.items():
+            totals[k] += v
+
+    def report(name, recs, ln, peak, **extra):
+        # rounds after the first (which sets up cuBLAS and the allocator)
+        steady = [r["ms"] for r in recs[1:]] or [recs[0]["ms"]]
+        ms = sum(steady) / len(steady)
+        say("train", run=name, rounds=len(recs), round_ms=[round(r["ms"], 3) for r in recs],
+            loop_wall_ms=[round(r["wall_ms"], 3) for r in recs],
+            steady_ms_per_round=ms, tokens_per_wall_s=TRAIN_TOKENS / (ms / 1e3),
+            model_flop_share=fpt * TRAIN_TOKENS / (ms / 1e3 * BF16_FLOP_PER_S),
+            losses=[round(r["loss"], 5) for r in recs], syncs=[r["syncs"] for r in recs],
+            launches=ln, peak_bytes=peak, card=repr(smi), **extra)
+        check(all(math.isfinite(r["loss"]) for r in recs), f"train {name}: loss not finite")
+        check(all(r["syncs"] == 0 for r in recs),
+              f"train {name}: round_fn synchronised with the host {[r['syncs'] for r in recs]}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    count_syncs(torch, lambda: torch.zeros(1, device="cuda").cpu())  # throwaway window
+
+    # (a) the kernel path: K3 once a round on its momentum route
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.Run(train.parse_args(TRAIN_ARGV))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, fpt = run.model.param_count(), run.model.flops_per_token()
+    with KernelTap(torch) as tap:
+        recs, ln = train_rounds(torch, run, tap, 3)
+    add(ln)
+    expect_launches(ln, delta_pipeline_apply=3, robust_kernel=0, delta_pipeline_partial=0,
+                    delta_sq_norms=0, fedavg_apply=0, flash_attention_fwd=0, wkv6_fwd=0,
+                    paged_attention_fwd=0)
+    peak_a = torch.cuda.max_memory_allocated()
+    report("a: kernel path", recs, ln, peak_a, params=n_params, init_s=init_s)
+    held = hold_k3_momentum(torch, dp, tap.k3)
+    say("train", kernel="delta_pipeline_apply", check="K3 (momentum route) of round 3 "
+        "== plain, window by window", **held)
+    upd, base, mask, weights = tap.k3["args"][:4]
+    times = lm_kernel_times(torch, dp, cu, upd, base, mask, weights, tap.k3["kw"]["momentum"])
+    for k, name in (("k3", "delta_pipeline_apply"), ("k4", "delta_pipeline_partial"),
+                    ("k2", "delta_sq_norms")):
+        say("train", kernel=name, shape=f"C={upd.shape[0] // (2 if k == 'k4' else 1)}, "
+            f"P={upd.shape[1]}", card=repr(smi), **times[k])
+    del tap, upd, base, mask, weights, held
+
+    # (c) K2 and K3's clip gate: one round with clip, int8 and DP noise
+    fl_c = dc.replace(run.fl_cfg, clip_norm=1.0, compression="int8", dp_sigma=0.01)
+    run.round_fn = make_round_fn(run.model, fl_c, flops_per_client_round=fpt
+                                 * TRAIN_TOKENS / run.fl_cfg.slots, draws=run.draws)
+    run.start_round = run.state.step
+    torch.cuda.reset_peak_memory_stats()
+    with KernelTap(torch) as tap:
+        recs_c, ln = train_rounds(torch, run, tap, 1)
+    add(ln)
+    expect_launches(ln, delta_pipeline_apply=1, delta_sq_norms=1, delta_pipeline_partial=0,
+                    robust_kernel=0)
+    report("c: clip + int8 + DP", recs_c, ln, torch.cuda.max_memory_allocated())
+    upd = tap.k3["args"][0]
+    k2 = cu.delta_sq_norms_cuda(upd)
+    plain = dp.delta_sq_norms_ref(upd)
+    exact = sum(torch.sum(torch.square(upd[:, lo:hi].double()), dim=1)
+                for lo, hi in windows(torch, upd.shape[1]))
+    e2 = float((k2 - plain).abs().max())
+    tol2 = 1e-5 * float(plain.abs().max())
+    check(e2 <= tol2, f"train: K2 norms {e2} > {tol2}")
+    say("train", kernel="delta_sq_norms", check="K2 norms of round 4's buffer == plain",
+        norms=[round(x, 6) for x in k2.sqrt().tolist()], max_abs_err=e2, tol=tol2,
+        kernel_rel_err_vs_float64=float(((k2.double() - exact) / exact).abs().max()),
+        plain_rel_err_vs_float64=float(((plain.double() - exact) / exact).abs().max()))
+    del plain, exact
+    check(tap.k3["kw"]["clip_norm"] == 1.0 and tap.k3["kw"]["compression"] == "int8",
+          "train: K3 not on its clip + int8 route")
+    del tap, upd, k2, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the fog tier over a population of 10^6: K4 once per fog a round
+    torch.cuda.reset_peak_memory_stats()
+    run = train.Run(train.parse_args(TRAIN_ARGV + ["--fog-nodes", "2",
+                                                   "--population", "1000000"]))
+    with KernelTap(torch) as tap:
+        recs_b, ln = train_rounds(torch, run, tap, 3)
+    add(ln)
+    expect_launches(ln, delta_pipeline_partial=6, delta_pipeline_apply=0, delta_sq_norms=0)
+    report("b: fog 2 + population 10^6", recs_b, ln, torch.cuda.max_memory_allocated())
+    say("train", kernel="delta_pipeline_partial", check="K4 per fog of round 3 == plain",
+        **hold_k4(torch, dp, cu, tap.k4))
+    del tap, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) checkpoint and resume at --scale tiny on the card
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    run = train.Run(train.parse_args(["--scale", "tiny", "--pallas-agg", "--rounds", "1",
+                                      "--ckpt-dir", str(d), "--ckpt-every", "1"]))
+    train._train_loop(run, NoopTracker())
+    restored = ckpt.restore(str(d), ckpt.latest_step(str(d)), run.state)
+    _, batch = run.batch(1)
+    a, ma = run.round_fn(run.state, batch)
+    b, mb = run.round_fn(restored, batch)
+    same = (all(torch.equal(x, y) for x, y in zip(tree.leaves([a.params, a.server_mu]),
+                                                   tree.leaves([b.params, b.server_mu])))
+            and all(torch.equal(ma[k], mb[k]) for k in ma) and a.step == b.step == 2
+            and (a.rng == b.rng).all())
+    check(same, "train: the restored state's next round differs from the original's")
+    say("train", run="d: checkpoint + resume (tiny)", restored_step=restored.step,
+        next_round_bitwise_equal=same)
+    shutil.rmtree(d, ignore_errors=True)
+    return {"launches": totals, "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -2439,7 +2773,18 @@ def main() -> int:
     say("phase", name="serving_rwkv6", seconds=time.perf_counter() - t0)
     k1_launches += launches["fedavg_apply"]
     kernels["wkv6_fwd"]["launches"] = launches["wkv6_fwd"]
+
+    # the LM round: llama3.2-1b at full width through K3, K4 and K2
+    t0 = time.perf_counter()
+    trn = phase_train(torch, smi)
+    say("phase", name="train", seconds=time.perf_counter() - t0)
+    k1_launches += trn["launches"]["fedavg_apply"]
     kernels["fedavg_apply"]["launches"] = k1_launches
+    for key, name in (("k3", "delta_pipeline_apply"), ("k4", "delta_pipeline_partial"),
+                      ("k2", "delta_sq_norms")):
+        kernels[name]["train_launches"] = trn["launches"][name]
+        kernels[name]["train_ms"] = trn["times"][key]["ms"]
+        kernels[name]["train_bound_ms"] = trn["times"][key]["bound_ms"]
 
     # 5. result: K1 to K7
     print(json.dumps({"kernels": [kernels[name] for name in kernel_counters()]}), flush=True)

@@ -29,7 +29,7 @@ def _module(arch_id: str):
         return importlib.import_module(_MODULES[arch_id])
     if arch_id in ARCH_IDS:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: ROADMAP.md queue 1, item 10 "
+            f"{arch_id!r} is not ported yet: ROADMAP.md queue 1, item 10(b) "
             "(the model families) registers it"
         )
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")

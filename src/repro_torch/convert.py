@@ -1,8 +1,10 @@
-"""Carry parameters and simulator state from the JAX package into the port.
+"""Carry parameters and simulator / FL state from the JAX package into
+the port.
 
-Both functions take numpy arrays (anything ``np.asarray`` accepts), never
-JAX objects by type, so a test can run ``repro``'s ``init_state(seed)``,
-hand the arrays over, and start both simulators from one state.
+Every function takes numpy arrays (anything ``np.asarray`` accepts), never
+JAX objects by type, so a test can run ``repro``'s ``init_state(seed)``
+or ``init_fl_state``, hand the arrays over, and start both packages from
+one state.
 """
 from __future__ import annotations
 
@@ -103,3 +105,27 @@ def model_params_from_jax(cfg, params, device=None):
 
     check(decls, out, "")
     return out
+
+
+def fl_state_from_jax(cfg, state, device=None):
+    """A JAX ``FLState`` (an object or dict whose leaves are numpy arrays:
+    model params, ``server_mu`` or None, ``server_count``, a dense or
+    full-population ``SchedulerState``, ``rng``, ``step``) -> the port's
+    ``fl.state.FLState``, on the CUDA card unless ``device`` names
+    another. ``rng`` stays a host (2,) uint32 key and ``step`` a host int,
+    as the port keeps them."""
+    from repro_torch.fl.state import FLState
+
+    device = resolve_device(device)
+    mu = _get(state, "server_mu")
+    sched = _get(state, "sched")
+    return FLState(
+        params=model_params_from_jax(cfg, _get(state, "params"), device),
+        server_mu=None if mu is None else _tensor_tree(mu, device),
+        server_count=_t(_get(state, "server_count"), device, torch.int32),
+        sched=SchedulerState(**_fields(
+            sched, ("prev_hist", "theta_e", "warm", "last_used", "energy_spent",
+                    "round_index"), device)),
+        rng=np.array(_get(state, "rng"), dtype=np.uint32),
+        step=int(np.asarray(_get(state, "step"))),
+    )

@@ -130,6 +130,38 @@ def scatter_cohort_sched(
     return dataclasses.replace(pop, round_index=cohort.round_index, **rows)
 
 
+def gather_sched_rows(sched: SchedulerState, ids: torch.Tensor) -> SchedulerState:
+    """Window rows of a FULL (population-sized) ``SchedulerState``, the LM
+    round's variant: its drift histograms are opaque caller data, so
+    ``prev_hist`` stays materialised at (M, hist_bins)."""
+    take = lambda a: torch.index_select(a, 0, ids)  # noqa: E731
+    return SchedulerState(
+        prev_hist=take(sched.prev_hist),
+        theta_e=take(sched.theta_e),
+        warm=take(sched.warm),
+        last_used=take(sched.last_used),
+        energy_spent=take(sched.energy_spent),
+        round_index=sched.round_index,
+    )
+
+
+def scatter_sched_rows(pop: SchedulerState, ids: torch.Tensor,
+                       rows: SchedulerState) -> SchedulerState:
+    """Write a window's advanced rows back into the full ``SchedulerState``
+    (out of place, as JAX's ``.at[ids].set``); unsampled clients keep
+    theirs."""
+    put = lambda name: torch.index_copy(  # noqa: E731
+        getattr(pop, name), 0, ids, getattr(rows, name))
+    return SchedulerState(
+        prev_hist=put("prev_hist"),
+        theta_e=put("theta_e"),
+        warm=put("warm"),
+        last_used=put("last_used"),
+        energy_spent=put("energy_spent"),
+        round_index=rows.round_index,
+    )
+
+
 # --------------------------------------------------------------------- #
 # fog-tier reduction
 # --------------------------------------------------------------------- #
@@ -244,18 +276,22 @@ def fog_pipeline_apply(
     per_fog = c // fog_nodes
     has_mu = momentum is not None and server_optimizer in ("fedavgm", "fedadam")
     dm, m = _discounted(mask, weights, staleness, staleness_exponent)
-    partials, sdm, sm = [], [], []
+    total, sdm, sm = None, [], []
     for f in range(fog_nodes):
         sl = slice(f * per_fog, (f + 1) * per_fog)
-        partials.append(delta_pipeline_partial(
+        partial = delta_pipeline_partial(
             updates[sl], dm[sl].contiguous(), clip_norm=clip_norm,
             compression=compression, topk_fraction=topk_fraction,
             seg_sizes=seg_sizes,
-        ))
+        )
+        # the cloud's sum, partial by partial in fog order: one (P,)
+        # accumulator, not F partials alive at once
+        total = partial if total is None else total.add_(partial)
+        del partial
         sdm.append(torch.sum(dm[sl]))
         sm.append(torch.sum(m[sl]))
     out, mu2 = combine_epilogue(
-        sum(partials[1:], partials[0]), sum(sdm[1:], sdm[0]), sum(sm[1:], sm[0]),
+        total, sum(sdm[1:], sdm[0]), sum(sm[1:], sm[0]),
         base, lr, has_stale=staleness is not None, dp_noise=dp_noise,
         momentum=momentum if has_mu else None,
         server_optimizer=server_optimizer, server_momentum=server_momentum,

@@ -64,12 +64,29 @@ def stacked_leaf_sizes(stacked) -> tuple[int, ...]:
     return tuple(math.prod(x.shape[1:]) for x in tree.leaves(stacked))
 
 
+# Ids of at most this many columns (64 MB of int32) are cached.
+CACHED_COLUMNS = 1 << 24
+
+
 def segment_ids(sizes: tuple[int, ...], device) -> torch.Tensor:
-    """(P,) int32 leaf-segment id per fused-buffer column. Built once per
-    ``(sizes, device)`` and shared (callers do not write into it): its
-    build copies ``sizes`` from the host, a copy that waits for the device
-    queue, so a round must not make it again."""
-    return _segment_ids(tuple(int(s) for s in sizes), torch.device(device))
+    """(P,) int32 leaf-segment id per fused-buffer column (callers do not
+    write into it). A simulator-sized layout is built once per ``(sizes,
+    device)`` and shared: its build copies ``sizes`` from the host, a copy
+    that waits for the device queue, so a round must not make it again. A
+    model-sized layout (more than ``CACHED_COLUMNS`` columns: 4.9 GB at
+    llama3.2-1b's 1.24·10⁹) is built anew on each call by one fill per
+    leaf, which waits for nothing, and is freed with its caller's last
+    reference instead of holding the card's memory for the process."""
+    sizes = tuple(int(s) for s in sizes)
+    device = torch.device(device)
+    if sum(sizes) <= CACHED_COLUMNS:
+        return _segment_ids(sizes, device)
+    ids = torch.empty((sum(sizes),), dtype=torch.int32, device=device)
+    off = 0
+    for i, n in enumerate(sizes):
+        ids[off:off + n].fill_(i)
+        off += n
+    return ids
 
 
 @functools.cache

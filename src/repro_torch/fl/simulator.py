@@ -46,13 +46,11 @@ Random draws come from a draw provider (``repro_torch.random``).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch import tree
 from repro_torch.core import aggregation as agg_mod
@@ -82,6 +80,7 @@ from repro_torch.fl.fuse import (
     stacked_leaf_sizes,
 )
 from repro_torch.obs.history import finalize_history, summary_metrics
+from repro_torch.obs.ranges import profiler_range
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.random import TorchDraws
 from repro_torch.sim.des import FaasSimConfig, RoundCostModel
@@ -89,13 +88,8 @@ from repro_torch.sim.faults import config as faults_config
 from repro_torch.sim.faults import inject as faults_inject
 
 def _phase(name: str):
-    """A profiler range ``round.<name>`` around a phase of ``_round`` while
-    a profiler runs (read by ``repro_torch.tools.profile_round``); no range
-    otherwise, since a range costs the host a dispatcher call even when no
-    profiler records it."""
-    if torch.autograd._profiler_enabled():
-        return record_function(f"round.{name}")
-    return contextlib.nullcontext()
+    """The ``round.<name>`` profiler range of a phase of ``_round``."""
+    return profiler_range(f"round.{name}")
 
 
 # --------------------------------------------------------------------- #

@@ -86,9 +86,13 @@
 // The order and the FMA are those of XLA's CPU dot, which the JAX package's
 // reference uses, so a run replays bitwise.
 //
-// Not changed by the streaming design: `sq_norms_kernel` (K2, one block per
-// client, 64 blocks on 132 SMs; splitting rows over blocks would fill the
-// card).
+// `sq_norms_kernel` (K2) gives each block one client row's span of at most
+// kNormCols columns: one block per client at the simulator's P (64 blocks),
+// a grid of (ceil(P / kNormCols), C) at a model's P, whose per-span sums
+// `sq_norms_combine_kernel` adds in a fixed order, one block per client.
+// One block per row (the first design) had 4 blocks at the LM round's
+// C = 4, P = 1.24e9: 4 of 132 SMs, and float32 sums of 1.5e5 terms per
+// accumulator, 5e-5 from the plain version's.
 //
 // `robust_kernel` (K3's masked median / trimmed mean, C <= 256) is a
 // register-resident sorting network, one column per thread:
@@ -133,6 +137,7 @@ namespace {
 
 constexpr int kNormThreads = 1024;
 constexpr int kNormUnroll = 8;
+constexpr long long kNormCols = 1LL << 20;  // columns per K2 block (a row's span)
 // robust_kernel: threads per block, one column each; at most 255
 // registers a thread, so the 64 keys and the addresses fit without a spill.
 constexpr int kRobustThreads = 128;
@@ -216,34 +221,58 @@ __host__ __device__ inline long long ring_offset(int C, int tile_cols) {
   return align_up(acc_offset(C) + 4LL * tile_cols, 128);
 }
 
-__global__ void __launch_bounds__(kNormThreads)
-sq_norms_kernel(const float* __restrict__ upd, float* __restrict__ out,
-                long long P) {
-  __shared__ float part[kNormThreads];
-  const float* row = upd + static_cast<long long>(blockIdx.x) * P;
-  float acc[kNormUnroll];
-#pragma unroll
-  for (int u = 0; u < kNormUnroll; ++u) acc[u] = 0.f;
-  const long long stride = static_cast<long long>(kNormThreads) * kNormUnroll;
-  for (long long p0 = threadIdx.x; p0 < P; p0 += stride) {
-#pragma unroll
-    for (int u = 0; u < kNormUnroll; ++u) {
-      const long long p = p0 + static_cast<long long>(u) * kNormThreads;
-      if (p < P) {
-        const float x = __ldg(row + p);
-        acc[u] = fmaf(x, x, acc[u]);
-      }
-    }
-  }
-  // Fixed-order tree reduction: the result does not depend on scheduling.
-  part[threadIdx.x] =
-      ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+// Fixed-order tree reduction of the block's kNormThreads values in `part`:
+// the result does not depend on scheduling. Thread 0 returns the sum.
+__device__ __forceinline__ float block_sum(float* part) {
   __syncthreads();
   for (int s = kNormThreads / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+  return part[0];
+}
+
+// Block (s, c): the sum of squares of row c's columns [s * kNormCols,
+// min((s + 1) * kNormCols, P)) -> out[c * gridDim.x + s].
+__global__ void __launch_bounds__(kNormThreads)
+sq_norms_kernel(const float* __restrict__ upd, float* __restrict__ out,
+                long long P) {
+  __shared__ float part[kNormThreads];
+  const float* row = upd + static_cast<long long>(blockIdx.y) * P;
+  const long long lo = static_cast<long long>(blockIdx.x) * kNormCols;
+  const long long hi = lo + kNormCols < P ? lo + kNormCols : P;
+  float acc[kNormUnroll];
+#pragma unroll
+  for (int u = 0; u < kNormUnroll; ++u) acc[u] = 0.f;
+  const long long stride = static_cast<long long>(kNormThreads) * kNormUnroll;
+  for (long long p0 = lo + threadIdx.x; p0 < hi; p0 += stride) {
+#pragma unroll
+    for (int u = 0; u < kNormUnroll; ++u) {
+      const long long p = p0 + static_cast<long long>(u) * kNormThreads;
+      if (p < hi) {
+        const float x = __ldg(row + p);
+        acc[u] = fmaf(x, x, acc[u]);
+      }
+    }
+  }
+  part[threadIdx.x] =
+      ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+  const float total = block_sum(part);
+  if (threadIdx.x == 0)
+    out[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = total;
+}
+
+// Block c: row c's `spans` per-span sums, added in a fixed order.
+__global__ void __launch_bounds__(kNormThreads)
+sq_norms_combine_kernel(const float* __restrict__ spans_in, float* __restrict__ out,
+                        int spans) {
+  __shared__ float part[kNormThreads];
+  const float* row = spans_in + static_cast<long long>(blockIdx.x) * spans;
+  float acc = 0.f;
+  for (int s = threadIdx.x; s < spans; s += kNormThreads) acc += row[s];
+  part[threadIdx.x] = acc;
+  const float total = block_sum(part);
+  if (threadIdx.x == 0) out[blockIdx.x] = total;
 }
 
 // Clip pre-scale, then compression emulation with the client's table entry
@@ -923,11 +952,26 @@ extern "C" {
 // arguments the kernel does not take. The trailing plan arguments of the
 // weighted-sum entries (blocks, tile_cols, rows, stages, smem_bytes) come
 // from `fedavg_plan` in delta_pipeline.py.
-int fedfog_delta_sq_norms(const float* upd, float* out, int C, long long P,
-                          void* stream) {
-  if (C <= 0 || P <= 0) return -1;
-  sq_norms_kernel<<<C, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      upd, out, P);
+// `spans` (C * ceil(P / kNormCols) floats) takes the per-span sums; with
+// one span a row the first kernel writes `out` itself and `spans` may be
+// null.
+int fedfog_delta_sq_norms(const float* upd, float* out, float* spans, int C,
+                          long long P, void* stream) {
+  if (C <= 0 || C > 65535 || P <= 0) return -1;
+  const long long n_spans = (P + kNormCols - 1) / kNormCols;
+  if (n_spans > 2147483647LL) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_spans), static_cast<unsigned>(C));
+  if (n_spans == 1) {
+    sq_norms_kernel<<<grid, kNormThreads, 0, s>>>(upd, out, P);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (spans == nullptr) return -1;
+  sq_norms_kernel<<<grid, kNormThreads, 0, s>>>(upd, spans, P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sq_norms_combine_kernel<<<C, kNormThreads, 0, s>>>(spans, out,
+                                                     static_cast<int>(n_spans));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,6 +54,7 @@ MAX_STAGES = 32
 MAX_SMEM = 232_448  # 227 KB, the most one block may use
 STAGE_BYTES = 16_384  # rows per stage: at least this many bytes ...
 MIN_STAGE_ROWS = 32  # ... and at least 32 bytes of each column
+NORM_COLS = 1 << 20  # K2: columns of a row per block (kNormCols)
 
 
 class FedavgPlan(NamedTuple):
@@ -166,7 +167,7 @@ def library():
     """Build (first use) and load the kernels; returns the KernelLibrary.
     Cached: the source hash is taken once, not on every launch."""
     kl = load_library("fedfog_delta_pipeline", [SOURCE])
-    kl.lib.fedfog_delta_sq_norms.argtypes = [_P, _P, _I, _LL, _P]
+    kl.lib.fedfog_delta_sq_norms.argtypes = [_P, _P, _P, _I, _LL, _P]
     kl.lib.fedfog_delta_sq_norms.restype = _I
     kl.lib.fedfog_delta_pipeline.argtypes = (
         [_P] * 11 + [_I, _I, _LL, _F, _F, _I, _I, _I] + [_I] * 5 + [_P]
@@ -202,17 +203,26 @@ def _raise_on(rc: int, what: str):
 
 
 def delta_sq_norms_cuda(updates: torch.Tensor) -> torch.Tensor:
-    """K2: per-client Σx² over the fused (C, P) delta buffer -> (C,) f32."""
+    """K2: per-client Σx² over the fused (C, P) delta buffer -> (C,) f32.
+    Each block sums one row's span of ``NORM_COLS`` columns; a row of more
+    than one span takes a (C, spans) scratch for the span sums, which a
+    second kernel adds in a fixed order."""
     if updates.dim() != 2:
         raise ValueError(f"updates must be (C, P), got {tuple(updates.shape)}")
     c, p = updates.shape
     _check(updates, "updates", (c, p))
+    if c > 65535:
+        raise ValueError(f"delta_sq_norms supports C <= 65535 clients, got {c}")
     out = torch.empty((c,), dtype=torch.float32, device=updates.device)
+    n_spans = -(-p // NORM_COLS)
+    spans = (torch.empty((c * n_spans,), dtype=torch.float32, device=updates.device)
+             if n_spans > 1 else None)
     lib = library().lib
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         _raise_on(
-            lib.fedfog_delta_sq_norms(updates.data_ptr(), out.data_ptr(), c, p, stream),
+            lib.fedfog_delta_sq_norms(updates.data_ptr(), out.data_ptr(), _ptr(spans),
+                                      c, p, stream),
             "delta_sq_norms",
         )
     delta_sq_norms_cuda.launches += 1
@@ -226,33 +236,25 @@ def segment_table(updates, compression, topk_fraction, seg_sizes, pre=None):
     """(C, L) compression table: int8 dequant scales or top-k thresholds.
 
     The single definition of the per-(client, leaf) reduction, shared by
-    ``fl.compression.apply_compression`` and the kernel wrapper. int8:
-    ``max|x|/127 + 1e-12`` per leaf by a segment scatter-max; top-k: the
-    kth-largest |x| per leaf (``torch.topk`` on static leaf slices).
-    ``pre`` (C,) positive clip scales rescale a table computed on the raw
-    deltas, as in the JAX wrapper.
+    ``fl.compression.apply_compression`` and the kernel wrapper, over
+    static leaf slices, so no temporary is larger than one leaf's rows.
+    int8: ``max|x|/127 + 1e-12`` per leaf; top-k: the kth-largest |x| per
+    leaf (``torch.topk``). ``pre`` (C,) positive clip scales rescale a
+    table computed on the raw deltas, as in the JAX wrapper.
     """
-    c = updates.shape[0]
-    if compression == "int8":
-        seg = segment_ids(seg_sizes, updates.device).to(torch.int64)
-        tab = torch.zeros(
-            (c, len(seg_sizes)), dtype=torch.float32, device=updates.device
-        ).scatter_reduce(
-            1, seg.expand(c, -1), torch.abs(updates), "amax", include_self=True
-        )
-        if pre is not None:
-            tab = tab * pre[:, None]
-        return tab / 127.0 + 1e-12
     cols, off = [], 0
     for sz in seg_sizes:
-        k = max(1, int(sz * topk_fraction))
         sl = torch.abs(updates[:, off:off + sz])
-        cols.append(torch.topk(sl, k, dim=1).values[:, -1:])
+        if compression == "int8":
+            cols.append(torch.amax(sl, dim=1, keepdim=True))
+        else:
+            k = max(1, int(sz * topk_fraction))
+            cols.append(torch.topk(sl, k, dim=1).values[:, -1:])
         off += sz
     tab = torch.cat(cols, dim=1)
     if pre is not None:
         tab = tab * pre[:, None]
-    return tab
+    return tab / 127.0 + 1e-12 if compression == "int8" else tab
 
 
 def validate(updates, compression, seg_sizes, aggregator, staleness):

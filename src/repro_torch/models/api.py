@@ -5,13 +5,17 @@ DENSE and SSM (rwkv6) families.
 config and dispatch on its family, as the JAX package's do:
 
     model.init(generator)                      -> params (on its device)
+    model.loss(params, batch)                  -> scalar CE loss
     model.prefill(params, batch, cache_len)    -> (logits, cache)
     model.decode_step(params, cache, tokens)   -> (logits, cache)
     model.init_cache(batch, max_len, device)   -> cache
     model.param_count() / active_param_count() / flops_per_token()
 
 Other families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; so does the training loss (item 10).
+ports them (item 10(b)).
+
+``batch`` holds ``tokens`` (B, S+1): inputs and next-token targets are
+derived here, and an optional ``loss_mask`` (B, S).
 """
 from __future__ import annotations
 
@@ -63,11 +67,14 @@ class Model:
         n = self.active_param_count() - emb
         return (6.0 if train else 2.0) * n
 
+    def _split_train_batch(self, batch):
+        toks = batch["tokens"]
+        return dict(tokens=toks[:, :-1], targets=toks[:, 1:],
+                    loss_mask=batch.get("loss_mask"))
+
     def loss(self, params, batch, runtime: Runtime = Runtime()):
-        raise NotImplementedError(
-            "the LM loss is not ported yet: ROADMAP.md queue 1, item 10 "
-            "(the pod-scale LM round) ports it"
-        )
+        kw = self._split_train_batch(batch)
+        return _mod(self.cfg).lm_loss(params, self.cfg, runtime=runtime, **kw)
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
         return _mod(self.cfg).init_cache(self.cfg, batch_size, max_len, device=device)

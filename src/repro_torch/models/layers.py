@@ -53,7 +53,9 @@ def gated_mlp(x: Array, w_gate: Array, w_up: Array, w_down: Array, act: str) -> 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> Array:
     """(head_dim//2,) float32 inverse frequencies."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exponents)
+    # theta as a fill, not a copy from the host (which would wait for the
+    # device queue in every layer of a training step)
+    return 1.0 / (torch.full((), theta, dtype=torch.float32, device=device) ** exponents)
 
 
 def apply_rope(x: Array, positions: Array, theta: float) -> Array:
@@ -151,7 +153,7 @@ def select_attention(
     if impl == "xla_chunked":
         raise NotImplementedError(
             "attn_impl='xla_chunked' is not ported yet: ROADMAP.md queue 1, "
-            "item 10 (the pod-scale LM round) brings it"
+            "item 10(b) (the model families) brings it"
         )
     if impl == "flash":
         from repro_torch.kernels.flash_attention import ops as flash_ops

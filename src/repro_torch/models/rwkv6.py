@@ -18,8 +18,11 @@ CPU one — and with a state (decode, T = 1) through the plain step of
 Serving: :func:`prefill` returns the last position's logits and the O(1)
 recurrent state ``{"wkv": (L, B, H, 64, 64) f32, "tm_x", "cm_x": (L, B,
 d), "pos": int}``; :func:`decode_step` advances it one token, writing
-the state IN PLACE (its caller owns it) and returning it. The training
-loss is not ported yet (ROADMAP.md queue 1, item 10).
+the state IN PLACE (its caller owns it) and returning it.
+
+Training: :func:`lm_loss` runs the recurrence from zero through the
+plain step of ``models.ssm`` (differentiable, no clamp on w, as the JAX
+model's loss runs it), since K6 is forward-only in both packages.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDecl, init_tree
-from repro_torch.models.transformer import _head_logits
+from repro_torch.models.transformer import _chunked_ce, _head_logits, unstacked_layers
 
 Array = torch.Tensor
 
@@ -116,10 +119,12 @@ def _data_dependent_mix(lp, x: Array, xprev: Array):
     return [x + dx * (lp["maa_wkvrg"][i] + mods[:, :, i]) for i in range(N_MAA)]
 
 
-def _time_mix(lp, cfg: ModelConfig, x: Array, wkv_state=None, x_prev=None):
+def _time_mix(lp, cfg: ModelConfig, x: Array, wkv_state=None, x_prev=None,
+              plain: bool = False):
     """Returns (out, new_wkv_state, last_x). x: (B, T, d). No state: the
-    recurrence from zero through K6 (``kernels.wkv6.ops``); a state: the
-    plain recurrence from it (``models.ssm.wkv6``)."""
+    recurrence from zero through K6 (``kernels.wkv6.ops``), or with
+    ``plain`` through the plain step (training); a state: the plain
+    recurrence from it (``models.ssm.wkv6``)."""
     b, t, d = x.shape
     H = num_heads(cfg)
     xprev = _shift(x, x_prev)
@@ -138,7 +143,7 @@ def _time_mix(lp, cfg: ModelConfig, x: Array, wkv_state=None, x_prev=None):
     def heads(z):
         return z.reshape(b, t, H, HEAD_DIM)
 
-    if wkv_state is None:
+    if wkv_state is None and not plain:
         y, s_final = wkv6_ops.wkv6(heads(r), heads(k), heads(v), heads(w), lp["u"])
     else:
         y, s_final = ssm_mod.wkv6(heads(r), heads(k), heads(v), heads(w), lp["u"],
@@ -158,14 +163,15 @@ def _channel_mix(lp, x: Array, x_prev=None):
     return torch.sigmoid(xr @ lp["cm_wr"]) * kv, x[:, -1]
 
 
-def _layer(lp, x: Array, cfg: ModelConfig, state=None):
+def _layer(lp, x: Array, cfg: ModelConfig, state=None, plain: bool = False):
     """One RWKV block. state: dict with wkv / tm_x / cm_x, or None
-    (prefill from zero)."""
+    (prefill from zero; ``plain`` for training)."""
     h = rms_norm(x, lp["ln_tm"], cfg.rms_eps)
     tm_out, wkv_new, tm_x = _time_mix(
         lp, cfg, h,
         None if state is None else state["wkv"],
         None if state is None else state["tm_x"],
+        plain,
     )
     x = x + tm_out
     h = rms_norm(x, lp["ln_cm"], cfg.rms_eps)
@@ -174,14 +180,15 @@ def _layer(lp, x: Array, cfg: ModelConfig, state=None):
 
 
 def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-                   runtime=None, return_state: bool = False):
+                   runtime=None, return_state: bool = False, plain: bool = False):
     """Full-sequence forward from a zero state. Returns hidden (B, S, d)
-    [, the stacked per-layer final states]."""
+    [, the stacked per-layer final states]. ``plain`` runs the recurrence
+    step by step instead of through K6 (the training loss)."""
     del runtime
     x = params["embed"][tokens] if tokens is not None else embeds
     states = []
-    for i in range(cfg.num_layers):
-        x, st = _layer(layer_params(params, i), x, cfg)
+    for lp in unstacked_layers(params):
+        x, st = _layer(lp, x, cfg, plain=plain)
         if return_state:
             states.append(st)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -190,11 +197,13 @@ def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     return x, {key: torch.stack([st[key] for st in states]) for key in states[0]}
 
 
-def lm_loss(params, cfg: ModelConfig, **kwargs):
-    raise NotImplementedError(
-        "the rwkv6 LM loss is not ported yet: ROADMAP.md queue 1, item 10 "
-        "(the pod-scale LM round) ports it"
-    )
+def lm_loss(params, cfg: ModelConfig, *, tokens=None, embeds=None, targets,
+            loss_mask=None, runtime=None):
+    """Next-token cross-entropy (``transformer._chunked_ce``) over the
+    plain recurrence."""
+    h = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, plain=True)
+    h = h[:, -targets.shape[1]:]
+    return _chunked_ce(params, cfg, h, targets, loss_mask)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):

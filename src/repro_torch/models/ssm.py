@@ -9,7 +9,7 @@ takes no chunk and runs step by step. The hand-written kernel of the
 same recurrence from a zero state is K6; ``models/rwkv6`` sends its
 prefill there.
 ``selective_scan`` (the HYBRID family) is not ported yet: ROADMAP.md
-queue 1, item 10.
+queue 1, item 10(b).
 """
 from __future__ import annotations
 

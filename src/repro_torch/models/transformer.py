@@ -53,7 +53,7 @@ def check_dense(cfg: ModelConfig) -> None:
     if cfg.family is not Family.DENSE or cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family.value} is not ported yet: "
-            "ROADMAP.md queue 1, item 10 (the model families) ports it"
+            "ROADMAP.md queue 1, item 10(b) (the model families) ports it"
         )
 
 
@@ -113,6 +113,17 @@ def static_layer_meta(cfg: ModelConfig, i: int) -> tuple[int, float]:
 def layer_params(params, i: int) -> dict[str, Array]:
     """Layer i's slice of the stacked parameters (views)."""
     return {k: v[i] for k, v in params["layers"].items()}
+
+
+def unstacked_layers(params) -> list[dict[str, Array]]:
+    """Every layer's slice of the stacked parameters from ONE ``unbind``
+    per leaf: views, whose backward is one stack per leaf. (Indexing each
+    layer instead makes the backward add L zero-padded full-size gradients
+    into every leaf: for llama3.2-1b's 16 layers on an H100, 307 of the
+    877 ms of kernel time of a training round.)"""
+    cols = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n = len(next(iter(cols.values())))
+    return [{k: cols[k][i] for k in cols} for i in range(n)]
 
 
 # --------------------------------------------------------------------- #
@@ -179,7 +190,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None):
         parts.append(params["embed"][tokens])
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
 
 
@@ -191,10 +202,9 @@ def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     x = embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(unstacked_layers(params)):
         w_i, th_i = static_layer_meta(cfg, i)
-        x, (k, v) = _layer_fwd(layer_params(params, i), cfg, x, positions, w_i,
-                               th_i, runtime)
+        x, (k, v) = _layer_fwd(lp, cfg, x, positions, w_i, th_i, runtime)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -212,6 +222,62 @@ def _head_logits(params, cfg: ModelConfig, h: Array) -> Array:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def lm_loss(params, cfg: ModelConfig, *, tokens=None, embeds=None, targets,
+            loss_mask=None, runtime=Runtime()):
+    """Next-token cross-entropy, sequence-chunked so the full (B, S, V)
+    logits never exist at once. Attention runs on the plain path
+    (``"auto"`` and ``"xla"``): K5 is forward-only in both packages, so
+    a loss asked of ``attn_impl="flash"`` raises rather than train on
+    another path."""
+    if cfg.attn_impl == "flash":
+        raise NotImplementedError(
+            "lm_loss with attn_impl='flash': K5 (flash_attention_fwd) has no "
+            "backward in either package; train with attn_impl 'auto' or 'xla'"
+        )
+    h = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, runtime=runtime)
+    # targets are the next-token predictions of the LAST targets.shape[1]
+    # positions
+    h = h[:, -targets.shape[1]:]
+    return _chunked_ce(params, cfg, h, targets, loss_mask)
+
+
+def _chunked_ce(params, cfg: ModelConfig, h: Array, targets: Array, loss_mask):
+    """Cross-entropy over ``cfg.loss_chunk``-position chunks of the
+    sequence (the last chunk padded with masked positions), summed over
+    chunks in order and divided by the unmasked count."""
+    tlen = targets.shape[1]
+    if loss_mask is None:
+        loss_mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device)
+
+    def ce(h_c, t_c, m_c):
+        logits = _head_logits(params, cfg, h_c)  # (B, chunk, V) f32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t_c[..., None].to(torch.int64))[..., 0]
+        return torch.sum((logz - gold) * m_c), torch.sum(m_c)
+
+    chunk = cfg.loss_chunk
+    if not chunk or tlen <= chunk:
+        total, count = ce(h, targets, loss_mask)
+    else:
+        n = -(-tlen // chunk)
+        pad = n * chunk - tlen
+
+        def padded(a):
+            if not pad:
+                return a
+            return torch.cat([a, torch.zeros((a.shape[0], pad) + tuple(a.shape[2:]),
+                                              dtype=a.dtype, device=a.device)], dim=1)
+
+        hp, tp, mp = padded(h), padded(targets), padded(loss_mask)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            s, c = ce(hp[:, sl], tp[:, sl], mp[:, sl])
+            total, count = total + s, count + c
+    return total / torch.clamp(count, min=1.0)
 
 
 # --------------------------------------------------------------------- #

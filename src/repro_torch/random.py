@@ -61,7 +61,24 @@ site plus the context that keys it (``round``, ``epoch``, ``index``):
                                 attempt ``attempt`` of client ``index``'s
                                 retry chain, admitted at dispatch ``round``
   ``async.faults.retry_noise``  (P,) normals of that attempt's corruption
+  ``slots.malicious``           (C,) permutation placing the attackers among
+                                the LM round's slots
+  ``lm.domains``                (K, V) normals of the latent domains'
+                                unigram logits
+  ``lm.drift.flags``            (C,) Bernoulli drift flags of ``ids``
+  ``lm.mixture``                (C, K) Dirichlet domain mixtures of ``ids``
+                                at (per-client) ``epoch``
+  ``lm.tokens``                 (C, B·(S+1)) tokens of a round's slots
+                                ``ids``, row c from ``softmax(logits[c])``
+  ``lm.copy``                   (C, B, S+1) uniforms of the copy mask
+  ``lm.data_sizes``             (C,) normals of the log dataset sizes
   ============================  ==========================================
+
+The LM round (``fl.round``) keys its draws (``rcs.perm``,
+``slots.malicious``, ``attack``, ``dp``, ``cohort``, ``faults.*``) by the
+round index ``state.step``, a host integer; the synthetic token data
+(``data.synthetic``) keys ``lm.tokens`` / ``lm.copy`` by the round and
+the slot occupants' ids.
 
 The async engine (``sim.events.engine``) keys its dispatch draws by the
 dispatch index as ``round``, exactly as ``_round`` keys a round's, so a
@@ -108,6 +125,51 @@ import torch
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _GAMMA_TRIES = 16
+
+
+# --------------------------------------------------------------------- #
+# The JAX package's key format, on the host
+# --------------------------------------------------------------------- #
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(key, x0, x1):
+    """Threefry-2x32 (20 rounds) of the uint32 counter pairs (x0, x1) under
+    ``key``, as ``jax.random``'s threefry implementation computes it."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+        ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+        x0 = (np.asarray(x0, np.uint32) + ks[0]).astype(np.uint32)
+        x1 = (np.asarray(x1, np.uint32) + ks[1]).astype(np.uint32)
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0 = (x0 + x1).astype(np.uint32)
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 = (x0 + ks[(i + 1) % 3]).astype(np.uint32)
+            x1 = (x1 + ks[(i + 2) % 3] + np.uint32(i + 1)).astype(np.uint32)
+    return x0, x1
+
+
+def prng_key(seed: int):
+    """(2,) uint32 key words of ``jax.random.PRNGKey(seed)`` (32-bit seeds,
+    as the JAX package runs without 64-bit mode: the low word is the seed
+    modulo 2³², the high word 0)."""
+    import numpy as np
+
+    return np.array([0, int(seed) & _M32], dtype=np.uint32)
+
+
+def split_key(key, num: int = 2):
+    """(num, 2) uint32: ``jax.random.split(key, num)`` of a (2,) key, on the
+    host (the JAX package's default, partitionable threefry: counter i's
+    two output words are key i)."""
+    import numpy as np
+
+    hi, lo = _threefry2x32(key, np.zeros(num, np.uint32),
+                           np.arange(num, dtype=np.uint32))
+    return np.stack([hi, lo], axis=1)
 
 
 def flush_context(round: int, uses: int) -> dict:
@@ -177,7 +239,10 @@ class TorchDraws:
             tuple(shape), generator=self._gen(site, **ctx), device=self.device
         )
 
-    def uniform(self, site: str, shape, lo: float, hi: float, **ctx):
+    def uniform(self, site: str, shape, lo: float, hi: float, *, ids=None, **ctx):
+        """Uniforms in [lo, hi); ``ids`` (the slot occupants' ids of
+        ``lm.copy``) only matters to a provider that keys by client."""
+        del ids
         u = torch.rand(
             tuple(shape), generator=self._gen(site, **ctx), device=self.device
         )

@@ -57,6 +57,13 @@ class RoundCostModel:
 
     cfg: FaasSimConfig = dataclasses.field(default_factory=FaasSimConfig)
 
+    @classmethod
+    def from_scheduler(cls, sched_cfg) -> "RoundCostModel":
+        """Build from a ``SchedulerConfig``: the LM round's entry point, so
+        both engines derive §IV.F semantics from one place."""
+        return cls(FaasSimConfig(cold_start=sched_cfg.cold_start,
+                                 energy=sched_cfg.energy_model))
+
     def orchestration_ms(self, n: int, k: Array, policy: str = "fedfog") -> Array:
         """Platform overhead for one round (Table IX); ``k`` is the number
         of selected clients."""

@@ -18,21 +18,23 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def _build(t, it):
+    if isinstance(t, dict):
+        out = {}
+        for k in sorted(t):
+            out[k] = _build(t[k], it)
+        return {k: out[k] for k in t}  # keep the caller's key order
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
+
+
 def unflatten(like, flat: list):
-    """Rebuild a tree shaped like ``like`` from ``flat`` leaves."""
-    it = iter(flat)
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {}
-            for k in sorted(t):
-                out[k] = build(t[k])
-            return {k: out[k] for k in t}  # keep the caller's key order
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-
-    return build(like)
+    """Rebuild a tree shaped like ``like`` from ``flat`` leaves. (A module
+    function, not a recursive closure: a closure that calls itself is a
+    reference cycle, and it would keep ``flat``, so every leaf, alive until
+    the cyclic garbage collector ran.)"""
+    return _build(like, iter(flat))
 
 
 def map(fn: Callable[..., Any], tree, *rest):  # noqa: A001 - mirrors jax.tree.map

@@ -33,6 +33,24 @@ the JAX package can be held against each other on identical data:
     2718)``. A flush consumes its dispatch's ``dp`` / ``tel`` / ``eval``
     keys as they are when ``uses`` is 0 and ``fold_in(key, uses)`` after.
 
+The LM round and its synthetic data (``repro/fl/round.py``,
+``repro/data/synthetic.py``), when the provider is given the FL state's
+initial key ``fl_rng``:
+
+  * round ``r`` (the state's step) takes the key ``rng_r`` of the state
+    after ``r`` rounds (each round splits 5 ways into ``(rng, sched,
+    attack, dp, mal)``): ``rcs.perm`` from ``sched``, ``attack`` (one key
+    per leaf), ``dp``, ``slots.malicious`` from ``mal``, ``cohort`` from
+    ``fold_in(rng_r, 7)`` and ``faults.*`` from ``fold_in(rng_r, 11)``,
+    split as the simulator's ``fold_in(k, 8)``;
+  * ``lm.domains`` is ``PRNGKey(seed)``, ``lm.drift.flags`` ``seed + 1``
+    folded with the epoch and then the client, ``lm.mixture`` ``seed + 2``
+    folded with the client and then the epoch, ``lm.data_sizes``
+    ``seed + 3``; a round's tokens come from ``launch/train.py``'s chain
+    ``PRNGKey(seed + 1)`` split twice a round (batch key, telemetry key):
+    slot ``i`` with client ``c`` takes ``split(fold_in(split(kb, C)[i],
+    c))`` as ``(lm.tokens, lm.copy)``.
+
 Every per-client draw takes ``ids``, the client ids of the rows, which
 default to ``arange(n)`` (the dense registry); the prior and the drift
 flags and permutation also take per-client epochs.
@@ -78,6 +96,15 @@ def _client_labels(k_data, logits, n_draw, cids):
     return jax.vmap(one)(jax.random.split(k_data, n), cids, logits)
 
 
+@functools.partial(jax.jit, static_argnames=("shape",))
+def _client_copy(k_data, shape, cids):
+    def one(key, cid):
+        _, k2 = jax.random.split(jax.random.fold_in(key, cid))
+        return jax.random.uniform(k2, shape)
+
+    return jax.vmap(one)(jax.random.split(k_data, cids.shape[0]), cids)
+
+
 @functools.partial(jax.jit, static_argnames=("n_draw", "dim"))
 def _client_noise(k_data, n_draw, dim, cids):
     # threefry draws a flat block: (n_draw, dim) holds the same values as
@@ -117,12 +144,35 @@ def _fresh(key, uses):
 class JaxDraws:
     """Draw provider replaying ``jax.random`` along the JAX package's keys."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, fl_rng=None):
         self.seed = int(seed)
         self.device = torch.device("cpu")
+        self.fl_rng = None if fl_rng is None else jnp.asarray(np.asarray(fl_rng),
+                                                              jnp.uint32)
         self._rounds: dict[int, dict] = {}
 
+    def _fl_round_keys(self, r: int) -> dict:
+        rng = self.fl_rng
+        for _ in range(r):
+            rng = jax.random.split(rng, 5)[0]
+        _, k_sched, k_attack, k_dp, k_mal = jax.random.split(rng, 5)
+        keys = {"sel": k_sched, "attack": k_attack, "dp": k_dp,
+                "slots.malicious": k_mal, "cohort": jax.random.fold_in(rng, 7)}
+        k_plan, keys["faults.noise"] = jax.random.split(jax.random.fold_in(rng, 11))
+        keys.update(zip((f"faults.{x}" for x in _FAULT_PLAN),
+                        jax.random.split(k_plan, 5)))
+        return keys
+
+    def _lm_batch_key(self, r: int):
+        """``launch/train.py``'s batch key of round ``r``."""
+        key = jax.random.PRNGKey(self.seed + 1)
+        for _ in range(r):
+            key = jax.random.split(jax.random.split(key)[0])[0]
+        return jax.random.split(key)[1]
+
     def round_key(self, r: int, name: str):
+        if r not in self._rounds and self.fl_rng is not None:
+            self._rounds[r] = self._fl_round_keys(r)
         if r not in self._rounds:
             key = jax.random.PRNGKey(self.seed + 100)
             for _ in range(r + 1):
@@ -167,7 +217,8 @@ class JaxDraws:
             for _ in range(index + 1):
                 k1, key = jax.random.split(key)
             return _t(jax.random.normal(k1, shape))
-        offsets = {"templates": 10, "data_sizes": 40}
+        offsets = {"templates": 10, "data_sizes": 40, "lm.domains": 0,
+                   "lm.data_sizes": 3}
         if site in offsets:
             return _t(jax.random.normal(self._init_key(offsets[site]), shape))
         profiles = {"profiles.mips": 1, "profiles.bw_up": 2, "profiles.rtt": 3}
@@ -201,7 +252,10 @@ class JaxDraws:
         raise KeyError(site)
 
     def uniform(self, site, shape, lo, hi, *, round=None, index=None,
-                attempts=None, attempt=None):
+                attempts=None, attempt=None, ids=None):
+        if site == "lm.copy":
+            return _t(_client_copy(self._lm_batch_key(round), tuple(shape[1:]),
+                                   _ids(ids, shape[0])) * (hi - lo) + lo)
         if site == "churn.init":
             key = jax.random.fold_in(jax.random.PRNGKey(self.seed + 100), 2718)
         elif site == "churn":
@@ -265,14 +319,16 @@ class JaxDraws:
             key = jax.random.fold_in(jax.random.PRNGKey(self.seed + 13), epoch)
         elif site == "rcs.perm":
             key = self.round_key(round, "sel")
+        elif site == "slots.malicious":
+            key = self.round_key(round, site)
         else:
             raise KeyError(site)
         return _t(jax.random.permutation(key, n)).to(torch.int64)
 
     def bernoulli(self, site, p, shape, *, epoch, ids=None):
         n = shape[0]
-        base = jax.random.PRNGKey(self.seed + {"drift.flags": 11,
-                                               "har.drift.flags": 21}[site])
+        base = jax.random.PRNGKey(self.seed + {"drift.flags": 11, "har.drift.flags": 21,
+                                               "lm.drift.flags": 1}[site])
         flags = jax.vmap(
             lambda c, e: jax.random.bernoulli(
                 jax.random.fold_in(jax.random.fold_in(base, e), c), p)
@@ -281,13 +337,16 @@ class JaxDraws:
 
     def dirichlet(self, site, alpha, shape, *, epoch, ids=None):
         n, k = shape
-        offset = {"prior": 12, "har.prior": 22}[site]
+        offset = {"prior": 12, "har.prior": 22, "lm.mixture": 2}[site]
         return _t(_priors(self.seed, _ids(ids, n), _per_client(epoch, n), alpha, k,
                           offset))
 
     def categorical(self, site, logits, n, *, round, ids=None):
-        assert site == "client_batch.labels", site
         lg = jnp.asarray(logits.detach().cpu().numpy())
         cids = _ids(ids, lg.shape[0])
-        return _t(_client_labels(self.round_key(round, "data"), lg, n, cids)).to(
-            torch.int64)
+        if site == "lm.tokens":
+            key = self._lm_batch_key(round)
+        else:
+            assert site == "client_batch.labels", site
+            key = self.round_key(round, "data")
+        return _t(_client_labels(key, lg, n, cids)).to(torch.int64)

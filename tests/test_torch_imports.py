@@ -43,6 +43,9 @@ def test_import_loads_no_jax_and_keeps_torch_state():
         "import repro_torch.launch.serve, repro_torch.configs\n"
         "import repro_torch.obs, repro_torch.sim.faults, repro_torch.fl.attacks\n"
         "import repro_torch.sim, repro_torch.sim.events, repro_torch.sim.sweep\n"
+        "import repro_torch.fl, repro_torch.fl.round, repro_torch.fl.state\n"
+        "import repro_torch.optim, repro_torch.optim.schedules, repro_torch.data.synthetic\n"
+        "import repro_torch.checkpoint, repro_torch.launch.train\n"
         "after = (torch.get_num_threads(), torch.get_default_dtype(), "
         "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32, "
         "torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())\n"
