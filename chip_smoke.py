@@ -16,7 +16,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 in shared memory), no spill in any and no stack in the
                 register ones;
                 K6's chunk size, window, grid and shared memory at the prefill's shape, and the registers and
-                spills of each of its instantiations);
+                spills of each of its instantiations; the registers and
+                spills of K5's and K7's hd-256 instantiations);
   3. kernels  — K1 (fedavg_apply) held against its plain version at the
                 JAX package's FEDAVG_CASES shapes, the simulator's cohort
                 (64, 112,766) in float32 and bf16 and kernels_bench's
@@ -62,17 +63,24 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 against its plain version at the serving prefill's shape
                 (B=1, H=32, Hkv=8, S=128, hd=64, bf16) and at edge shapes
                 (window, bidirectional, GQA 8, 4 and 1, Sq < Sk, ragged and
-                multi-tile S, every hd from 16 to 128) on both routes (bf16
+                multi-tile S, every hd from 16 to 128, and hd 256 at
+                gemma3-12b's 16 over 8 heads: S = 2,048 with the 1,024
+                window and global, the 128-token prefill, bidirectional and
+                float32) on both routes (bf16
                 tensor cores, float32 CUDA cores), K7 (paged_attention_fwd)
                 at the decode step's shape (8 slots of 129..160 tokens, page
                 16) and at edge shapes (ragged and empty slots, windows,
                 trash-page table entries, g 1, 2 and 8) and at its split
                 plan's boundaries (one live token, fewer live pages than
                 splits, windows that kill whole splits, 40 pages through
-                the page ring), the kernel's own empty slots exact zeros;
+                the page ring; hd 256 at gemma3's g 2 over 130 pages with
+                lengths past the 1,024 window, windowed and global, and at
+                the decode step's shape), the kernel's own empty slots exact
+                zeros;
                 then both timed at the slice's shapes beside the plain
                 version, the bound and SDPA, with K7's split plan
-                printed; K6
+                printed, and at hd 256 (K5 at 2,048 tokens, K7 at 8 slots of
+                1,025..2,080 keys, each windowed and global); K6
                 (wkv6_fwd) held against its plain version at the rwkv6
                 prefill's shape (B=1, T=128, H=32, K=V=64, bf16), at B=2
                 with a ragged T=100, at T < 32, in float32, on strided views
@@ -155,11 +163,12 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 tokens, after the dense-mode engine on the same trace: every
                 request completed, slot conservation, tokens in [0, vocab),
                 K5 16 launches per admission, K7 16 per decode step, K2-K4
-                none; prefill tokens equal to the dense engine's and the
-                first decode step's logits within LOGITS_RTOL of it; the
-                share of requests with the dense engine's tokens, wall ms
-                per admission and per decode step, init s and peak bytes
-                printed;
+                none; prefill tokens equal to the dense engine's; the first
+                decode step's logits of 8 slots admitted afresh within
+                LOGITS_RTOL of the dense mode with its attention in float32;
+                the share of requests with the dense engine's tokens, wall
+                ms per admission (8 admissions after one warm-up) and per
+                decode step (10 steps), init s and peak bytes printed;
                 rwkv6 serving: ContinuousBatchingEngine for full-width
                 rwkv6-1.6b in bf16 (24 layers, d 2048, random weights from
                 a seed) on the same kind of trace: every request completed,
@@ -175,6 +184,31 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 per decode step, tokens per wall second, init s, peak bytes
                 and the share of first tokens equal to the plain prefill's
                 printed;
+                serving_moe: serving's engines and gates for
+                moonshot-v1-16b-a3b at full width and depth (48 layers, 64
+                experts top-6, 28.06e9 parameters) in bf16, K5 48 launches
+                per admission and K7 48 per decode step; on layer 24's own
+                input from a real prefill the served dropless MoE FFN
+                within MOE_F32_RTOL of the all-experts oracle in float32
+                and, in bf16, no further than the plain bf16 oracle from
+                the float32 result; one decode step's MoE FFN under
+                set_sync_debug_mode("error"); the served FFN's and the
+                oracle's device ms on the prefill and decode inputs, init s,
+                parameter and active counts, peak bytes, wall ms per
+                admission and decode step, tokens per wall second,
+                launches per decode step (profiler), the host
+                synchronisations of a whole decode step and the distinct
+                experts each layer of a decode step hits printed;
+                serving_archs: qwen2.5-14b, yi-9b and gemma3-12b at full
+                width and depth, then mixtral-8x7b at full width with 8 of
+                its 32 layers, one at a time: 8 admissions (K5 = layers x
+                8), then the first decode step of the 8 slots paged (K7 =
+                layers) within LOGITS_RTOL of the dense mode with its
+                attention in float32; wall ms per admission and decode
+                step and peak bytes printed;
+                async_cli: the async engine's CLI smoke
+                (sim.events.engine._smoke, FedBuff(4), 16 clients, a
+                2,000 ms horizon) on the card, flushes > 0;
                 train: launch/train.py's loop (fl.round) on full-width
                 llama3.2-1b in bf16 (16 layers, d 2048, P = 1,235,814,400,
                 random weights from a seed), 32 clients, 4 slots, 2 local
@@ -209,6 +243,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -1091,7 +1126,17 @@ K5_CASES = [
     ("hd 32, bidirectional, ragged", 2, 8, 2, 50, 50, 32, 0, True, "bfloat16"),
     ("hd 16, window", 1, 4, 4, 70, 70, 16, 9, False, "bfloat16"),
     ("float32, S 200, window", 1, 8, 2, 200, 200, 64, 70, False, "float32"),
+    # head_dim 256 (gemma3-12b: 16 heads over 8, local window 1,024): the
+    # bf16 route keeps q in shared memory and takes 32-key tiles there
+    ("hd 256, gemma3 local, S 2048", 1, 16, 8, 2048, 2048, 256, 1024, False, "bfloat16"),
+    ("hd 256, gemma3 global, S 2048", 1, 16, 8, 2048, 2048, 256, 0, False, "bfloat16"),
+    ("hd 256, gemma3 prefill", 1, 16, 8, PROMPT, PROMPT, 256, 1024, False, "bfloat16"),
+    ("hd 256, gqa 4, bidirectional, ragged", 2, 8, 2, 77, 77, 256, 0, True, "bfloat16"),
+    ("hd 256, float32, window", 1, 4, 2, 300, 300, 256, 100, False, "float32"),
 ]
+# K7 at head_dim 256: 130 pages of 16 (2,080 keys: 8 blocks of 17 pages)
+K7_256_PAGES = 130
+K7_256_LENGTHS = [2080, 1025, 1500, 0, 1, 2048, 1024, 1800]
 # (name, slots, Hkv, g, hd, page, pages per slot, window (model convention,
 # -1 = global), dtype, lengths or None for the slice's 129..160)
 K7_CASES = [
@@ -1113,6 +1158,13 @@ K7_CASES = [
     ("40 pages, ring", 4, 8, 4, 64, PAGE, 40, -1, "bfloat16", [640, 300, 1, 0]),
     ("40 pages, ring, window", 4, 2, 4, 64, PAGE, 40, 100, "float32", [640, 300, 99, 0]),
     ("gqa8, hd 128", 3, 2, 8, 128, 32, 3, -1, "bfloat16", [96, 33, 0]),
+    # head_dim 256 (gemma3-12b: g 2), lengths past the 1,024 window
+    ("hd 256, gemma3, window 1024", SLOTS, 8, 2, 256, PAGE, K7_256_PAGES, 1024, "bfloat16",
+     K7_256_LENGTHS),
+    ("hd 256, gemma3, global", SLOTS, 8, 2, 256, PAGE, K7_256_PAGES, -1, "bfloat16",
+     K7_256_LENGTHS),
+    ("hd 256, gemma3 decode step", SLOTS, 8, 2, 256, PAGE, 10, 1024, "bfloat16", None),
+    ("hd 256, float32, window", 4, 2, 4, 256, PAGE, 20, 100, "float32", [320, 101, 0, 7]),
 ]
 # bf16 outputs: the kernel and the plain version both compute in float32
 # and round once to bf16, in another order; they may land one bf16 step
@@ -1280,6 +1332,97 @@ def phase_attention_kernels(torch):
          "bound_by": "bytes" if by7[0] >= by7[1] else "operations",
          "library_ms": t["k7_lib"]},
     ]
+
+
+# ---- K5 and K7 at head_dim 256 (gemma3-12b), timed ------------------- #
+GEMMA = dict(h=16, hkv=8, hd=256, window=1024)
+K5_256_S = 2048
+
+
+def causal_pairs(sq: int, sk: int, window: int) -> int:
+    """(q, k) pairs a causal mask (q rows at the tail of the keys) with an
+    optional window (0 = global) leaves visible, per head."""
+    off = sk - sq
+    return sum(min(off + i + 1, window) if window > 0 else off + i + 1 for i in range(sq))
+
+
+def time_attention_256(torch) -> dict:
+    """K5 at (1, 2,048, 16 over 8, 256) and K7 at 8 slots of 1,025..2,080
+    keys (16 over 8, 256), each with gemma3's local window of 1,024 and
+    global, beside the plain version, the bound and SDPA. Returns
+    {kernel: {"window" | "global": {ms, plain_ms, bound_ms, bound_by,
+    library_ms}}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import gather_pages, paged_attention_ref
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda
+
+    dev = torch.device("cuda")
+    h, hkv, hd, w = GEMMA["h"], GEMMA["hkv"], GEMMA["hd"], GEMMA["window"]
+    s = K5_256_S
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
+               ((1, s, h, hd), (1, s, hkv, hd), (1, s, hkv, hd)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    n_tab = K7_256_PAGES
+    lengths = torch.randint(1025, n_tab * PAGE + 1, (SLOTS,), generator=gen, device=dev)
+    pq, kp, vp, table, lens = paged_inputs(torch, SLOTS, hkv, h // hkv, hd, PAGE, n_tab,
+                                           "bfloat16", lengths.tolist(), 10, dev)
+    kg = gather_pages(kp, table).transpose(1, 2).contiguous()  # (S, Hkv, n*page, hd)
+    vg = gather_pages(vp, table).transpose(1, 2).contiguous()
+    pos = torch.arange(s, device=dev)
+    kpos = torch.arange(n_tab * PAGE, device=dev)[None, :]
+    el = 2
+    out = {"flash_attention_fwd": {}, "paged_attention_fwd": {}}
+    for name, win in (("window", w), ("global", 0)):
+        vis = pos[None, :] <= pos[:, None]
+        if win:
+            vis = vis & (pos[:, None] - pos[None, :] < win)
+        qpos = lens[:, None].long() - 1
+        kvis = kpos <= qpos
+        if win:
+            kvis = kvis & (qpos - kpos < win)
+        kmask = kvis[:, None, None, :]
+        t = {
+            "k5": cuda_ms(lambda i: flash_attention_cuda(q, k, v, window=win), 100),
+            "k5_plain": cuda_ms(lambda i: flash_attention_ref(qt, kt, vt, window=win), 10, 2),
+            "k5_lib": cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True) if not win else
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis, enable_gqa=True),
+                100),
+            "k7": cuda_ms(lambda i: paged_attention_cuda(pq, kp, vp, table, lens, window=win),
+                          200),
+            "k7_plain": cuda_ms(lambda i: paged_attention_ref(pq, kp, vp, table, lens,
+                                                              win if win else -1), 20, 2),
+            "k7_lib": cuda_ms(lambda i: F.scaled_dot_product_attention(
+                pq[:, :, None], kg, vg, attn_mask=kmask, enable_gqa=True), 200),
+        }
+        k5_bytes = el * (2 * s * h * hd + 2 * s * hkv * hd)
+        k5_ops = 4 * h * causal_pairs(s, s, win) * hd
+        live = int(torch.clamp(lens, max=win).sum()) if win else int(lens.sum())
+        k7_bytes = el * (2 * live * hkv * hd + 2 * SLOTS * h * hd) + 4 * (SLOTS * n_tab + SLOTS)
+        k7_ops = 4 * live * h * hd
+        for kern, key, nbytes, ops in (("flash_attention_fwd", "k5", k5_bytes, k5_ops),
+                                       ("paged_attention_fwd", "k7", k7_bytes, k7_ops)):
+            by = (nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S)
+            rec = {"ms": t[key], "plain_ms": t[f"{key}_plain"], "bound_ms": max(by) * 1e3,
+                   "bound_by": "bytes" if by[0] >= by[1] else "operations",
+                   "library_ms": t[f"{key}_lib"]}
+            out[kern][name] = rec
+            shape = (dict(B=1, S=s) if key == "k5" else
+                     dict(slots=SLOTS, page=PAGE, lengths=lens.tolist()))
+            say("timing", kernel=kern, hd=hd, H=h, Hkv=hkv, window=win, dtype="bfloat16",
+                **shape, bytes=nbytes, operations=ops, **rec,
+                library="F.scaled_dot_product_attention" + (
+                    " (causal, GQA)" if key == "k5" and not win else
+                    " (boolean mask, GQA)" if key == "k5" else
+                    " over the pre-gathered cache"),
+                share_of_bound=rec["bound_ms"] / rec["ms"])
+    return out
 
 
 # ---- K6 (the RWKV6 recurrence) ---------------------------------------- #
@@ -1461,21 +1604,23 @@ SERVE_REQUESTS, SERVE_RATE = 16, 20.0  # the launcher's default rate
 LOGITS_RTOL = 0.05  # of the dense logits' max |value|
 
 
-def phase_serving(torch):
-    """The port's serving path: ContinuousBatchingEngine for full-width
-    llama3.2-1b in bf16 on the card, prefill through K5 (attn_impl
-    "flash") and decode through K7 (attn "paged"), after the dense-mode
-    engine on the same trace. Returns the paged run's launch counts."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import Runtime, build_model
+def serve_checked(torch, cfg) -> dict:
+    """The serving path of a DENSE or MOE config at full width in bf16 on
+    the card (random weights from a seed): ContinuousBatchingEngine with
+    prefill through K5 (attn_impl "flash") and decode through K7 (attn
+    "paged"), after the dense-mode engine on the same trace, and the gates
+    of both; then the first decode step of a full slot batch, paged
+    against dense, and the wall time per admission and per decode step.
+    Returns the run's readings (the model and its parameters, and
+    ``first_step``'s, included)."""
+    from repro_torch.models import build_model
     from repro_torch.random import TorchDraws
     from repro_torch.serve import (ContinuousBatchingEngine, EngineConfig, TraceConfig,
-                                   make_trace, paged)
+                                   make_trace)
 
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1491,9 +1636,10 @@ def phase_serving(torch):
                         max_requests=SERVE_REQUESTS)
     say("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, vocab=cfg.vocab_size,
-        params=model.param_count(), dtype=cfg.param_dtype, init_s=init_s,
-        requests=SERVE_REQUESTS, rate_per_s=SERVE_RATE, slots=SLOTS, page=PAGE,
-        prompt=PROMPT, gen_len=trace.gen_len.tolist())
+        params=model.param_count(), active_params=model.active_param_count(),
+        dtype=cfg.param_dtype, init_s=init_s, requests=SERVE_REQUESTS,
+        rate_per_s=SERVE_RATE, slots=SLOTS, page=PAGE, prompt=PROMPT,
+        gen_len=trace.gen_len.tolist())
 
     dense = ContinuousBatchingEngine(model, params, ecfg).serve(trace)  # also warms up
     engine = ContinuousBatchingEngine(model, params, dataclasses.replace(ecfg, attn="paged"))
@@ -1505,11 +1651,11 @@ def phase_serving(torch):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check(rep.completed == SERVE_REQUESTS and rep.rejected == 0,
-          f"{rep.completed} of {SERVE_REQUESTS} requests completed")
-    check(dense.completed == SERVE_REQUESTS, "dense engine left requests unserved")
+          f"{cfg.name}: {rep.completed} of {SERVE_REQUESTS} requests completed")
+    check(dense.completed == SERVE_REQUESTS, f"{cfg.name}: dense engine left requests unserved")
     c = rep.counters
     check(c["arrived"] == c["completed"] + c["rejected"] + c["in_flight"] + c["waiting"],
-          f"slot conservation: {c}")
+          f"{cfg.name}: slot conservation: {c}")
     for r in (rep, dense):
         for req in range(SERVE_REQUESTS):
             toks = r.tokens_for(req)
@@ -1522,60 +1668,38 @@ def phase_serving(torch):
     same = sum(rep.tokens_for(i) == dense.tokens_for(i) for i in range(SERVE_REQUESTS))
     # Both engines prefill through the same K5 path: their first tokens agree.
     check(all(rep.tokens_for(i)[0] == dense.tokens_for(i)[0] for i in range(SERVE_REQUESTS)),
-          "paged and dense engines differ in a prefill token")
+          f"{cfg.name}: paged and dense engines differ in a prefill token")
 
     # First decode step of a full slot batch, paged vs dense, on one pool;
-    # then wall time per admission and per decode step (host clock around
-    # synchronised runs; these launches are outside the counted run).
-    plan = engine.plan
-    pool = paged.init_pool(cfg, plan, SLOTS, engine.num_pages, device=dev)
-    tokens = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
-    out_buf = torch.zeros((SERVE_REQUESTS + 1, MAX_GEN), dtype=torch.int32, device=dev)
-    prompts = torch.from_numpy(trace.prompts).to(dev)
-    admit = paged.make_admit_fn(model, plan)
-    n_tab = plan.pages_per_slot
-    table = torch.arange(1, SLOTS * n_tab + 1, dtype=torch.int32, device=dev).reshape(SLOTS, n_tab)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for slot in range(SLOTS):
-        admit(params, pool, tokens, out_buf, prompts[slot:slot + 1],
-              table[slot, :plan.prompt_pages].long(), slot, slot)
-    torch.cuda.synchronize()
-    admit_ms = (time.perf_counter() - t0) / SLOTS * 1e3
-    positions = torch.full((SLOTS,), plan.prompt_eff, dtype=torch.int64, device=dev)
-    active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
-    logits = {}
-    for mode in ("dense", "paged"):
-        logits[mode], _ = paged._paged_transformer_step(
-            params, cfg, plan, {k: x.clone() for k, x in pool.items()}, tokens, table,
-            positions, active, Runtime(), mode)
-    torch.cuda.synchronize()
-    diff = float((logits["paged"] - logits["dense"]).abs().max())
-    scale = float(logits["dense"].abs().max())
-    check(diff <= LOGITS_RTOL * scale,
-          f"paged vs dense first-step logits: {diff} > {LOGITS_RTOL} x {scale}")
-    step = paged.make_decode_fn(model, plan, attn="paged")
-    out_req = torch.full((SLOTS,), SERVE_REQUESTS, dtype=torch.int64, device=dev)
-    out_idx = torch.zeros((SLOTS,), dtype=torch.int64, device=dev)
-    n_steps = 20
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n_steps):
-        pool, tokens, out_buf = step(params, pool, tokens, out_buf, table, positions + i,
-                                     active, out_req, out_idx)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    say("serve", engine="continuous", attn="paged", attn_impl=cfg.attn_impl,
+    # then wall time per admission and per decode step (these launches
+    # are outside the counted run).
+    fs = first_step(torch, cfg, model, params, torch.from_numpy(trace.prompts[:SLOTS]).cuda())
+    say("serve", arch=cfg.name, engine="continuous", attn="paged", attn_impl=cfg.attn_impl,
         completed=rep.completed, rejected=rep.rejected, prefills=rep.prefills,
         decode_steps=rep.decode_steps, tokens=rep.tokens_generated, counters=c,
         launches=launches, wall_s=rep.wall_s, tokens_per_wall_s=rep.tokens_per_wall_s,
         virtual_ms=rep.virtual_ms, p50_ms=rep.percentiles["p50"], peak_bytes=peak)
-    say("serve", dense_wall_s=dense.wall_s, dense_decode_steps=dense.decode_steps,
+    say("serve", arch=cfg.name, dense_wall_s=dense.wall_s,
+        dense_decode_steps=dense.decode_steps,
         share_of_requests_with_dense_tokens=same / SERVE_REQUESTS,
-        first_step_logits_max_abs_diff=diff, dense_logits_max_abs=scale,
-        tol=f"{LOGITS_RTOL} x max|dense|", wall_ms_per_admission=admit_ms,
-        wall_ms_per_decode_step=decode_ms, first_request_tokens=rep.tokens_for(0))
-    return launches
+        first_step_logits_max_abs_diff_to_dense_f32_attention=fs["diff"],
+        dense_f32_attention_logits_max_abs=fs["scale"], tol=f"{LOGITS_RTOL} x max|dense f32|",
+        same_next_token_as_dense_f32_attention=f"{fs['same_next_token']} of {SLOTS}",
+        wall_ms_per_admission=fs["admit_ms"], wall_ms_per_decode_step=fs["decode_ms"],
+        first_request_tokens=rep.tokens_for(0))
+    return dict(fs, model=model, params=params, trace=trace, launches=launches, rep=rep,
+                peak=peak, init_s=init_s)
+
+
+def phase_serving(torch):
+    """The port's serving path: ContinuousBatchingEngine for full-width
+    llama3.2-1b in bf16 on the card, prefill through K5 (attn_impl
+    "flash") and decode through K7 (attn "paged"), after the dense-mode
+    engine on the same trace. Returns the paged run's launch counts."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+    return serve_checked(torch, cfg)["launches"]
 
 
 # ---- the rwkv6 serving slice: continuous batching, prefill through K6 -- #
@@ -2584,6 +2708,314 @@ def phase_train(torch, smi) -> dict:
     return {"launches": totals, "times": times}
 
 
+# ---- the MoE serving slice: moonshot-v1-16b-a3b ------------------------ #
+# The served FFN (models/moe.moe_ffn_dropless) against the plain all-experts
+# oracle (moe_ffn_reference) on one layer's own input from a real prefill:
+#   * float32 (the layer's bf16 weights and input widened): the two compute
+#     the same per-row products and differ in the order of their sums, held
+#     to MOE_F32_RTOL of the reference's max |value|;
+#   * bf16 (the served dtype): both round each projection to bf16; the
+#     served route is held no further from the float32 result than the
+#     plain bf16 reference is.
+MOE_F32_RTOL = 1e-5
+MOE_FFN_ITERS = 20  # calls timed per FFN route and input
+MOE_LAYER = 24  # the layer whose FFN input is held
+
+
+@contextlib.contextmanager
+def ffn_inputs(records):
+    """Append (layer parameters, input) of every ``transformer._ffn_block``
+    call to ``records`` (the prefill and both decode modes call it through
+    the module)."""
+    from repro_torch.models import transformer as tf
+
+    block = tf._ffn_block
+
+    def recorded(lp, cfg, x, runtime=tf.Runtime()):
+        records.append((lp, x))
+        return block(lp, cfg, x, runtime)
+
+    tf._ffn_block = recorded
+    try:
+        yield
+    finally:
+        tf._ffn_block = block
+
+
+MOE_KEYS = ("w_router", "we_gate", "we_up", "we_down")
+
+
+def moe_ffn_ms(torch, moe, x, w, cfg) -> dict:
+    """Device ms per call of the served MoE FFN and of the all-experts
+    oracle on the input ``x`` with one layer's weights ``w``."""
+    with torch.no_grad():
+        return {name: cuda_ms(lambda i: fn(x, *w, cfg), MOE_FFN_ITERS)
+                for name, fn in (("dropless", moe.moe_ffn_dropless),
+                                 ("reference", moe.moe_ffn_reference))}
+
+
+def phase_serving_moe(torch) -> dict:
+    """moonshot-v1-16b-a3b at full width and depth in bf16 through the
+    serving gates of llama's phase (K5 per admission layer, K7 per decode
+    layer), then the MoE gates: (a) the served FFN against the plain
+    oracle on a prefill's layer input, (b) a decode step's MoE FFN under
+    ``set_sync_debug_mode("error")``; the distinct experts a decode step's
+    layers hit, launches per decode step and the host synchronisations of
+    a whole decode step. Returns the counted run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tools.profile_serve import _profile
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), attn_impl="flash")
+    r = serve_checked(torch, cfg)
+    model, params = r["model"], r["params"]
+    dev = torch.device("cuda")
+    prompt = torch.from_numpy(r["trace"].prompts[:1]).to(dev)
+
+    # (a) one layer's own input from a real prefill
+    recs = []
+    with torch.no_grad(), ffn_inputs(recs):
+        model.prefill(params, {"tokens": prompt}, cache_len=PROMPT)
+    check(len(recs) == cfg.num_layers, f"{len(recs)} FFN calls in a {cfg.num_layers}-layer prefill")
+    lp, x = recs[MOE_LAYER]
+    w = [lp[k] for k in MOE_KEYS]
+    w32 = [t.float() for t in w]
+    with torch.no_grad():
+        ref32 = moe.moe_ffn_reference(x.float(), *w32, cfg)
+        drop32 = moe.moe_ffn_dropless(x.float(), *w32, cfg)
+        served = moe.moe_ffn_dropless(x, *w, cfg)
+        plain = moe.moe_ffn_reference(x, *w, cfg)
+    scale = float(ref32.abs().max())
+    e32 = float((drop32 - ref32).abs().max())
+    e_served = float((served.float() - ref32).abs().max())
+    e_plain = float((plain.float() - ref32).abs().max())
+    del w32, ref32, drop32, served, plain
+    prefill_ms = moe_ffn_ms(torch, moe, x, w, cfg)
+    prefill_hit = int(torch.unique(moe.router_topk(x.reshape(-1, cfg.d_model), w[0],
+                                                   cfg.experts_per_token)[1]).numel())
+    check(e32 <= MOE_F32_RTOL * scale,
+          f"MoE dropless vs reference in float32: {e32} > {MOE_F32_RTOL} x {scale}")
+    check(e_served <= e_plain,
+          f"MoE dropless in bf16: {e_served} from float32, the plain bf16 {e_plain}")
+
+    # (b) one decode step's MoE FFN, under sync debug mode "error"; the
+    # distinct experts of the step's layers
+    recs = []
+    with ffn_inputs(recs):
+        r["decode"](0)
+    check(len(recs) == cfg.num_layers, f"{len(recs)} FFN calls in a decode step")
+    lp, xd = recs[MOE_LAYER]
+    count_syncs(torch, lambda: torch.zeros(1, device="cuda").cpu())  # throwaway window
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            yd = moe.moe_ffn_dropless(xd, *[lp[k] for k in MOE_KEYS], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(yd).all()), "decode-step MoE FFN not finite")
+    decode_ms = moe_ffn_ms(torch, moe, xd, [lp[k] for k in MOE_KEYS], cfg)
+    hit = [int(torch.unique(moe.router_topk(xl.reshape(-1, cfg.d_model), lpl["w_router"],
+                                            cfg.experts_per_token)[1]).numel())
+           for lpl, xl in recs]
+    del recs, lp, xd, yd
+    torch.cuda.synchronize()
+    step_syncs = count_syncs(torch, lambda: r["decode"](1))
+    prof = _profile(lambda i: r["decode"](2 + i), 2, 3)
+    rep = r["rep"]
+    say("serve_moe", arch=cfg.name, params=model.param_count(),
+        active_params=model.active_param_count(), init_s=r["init_s"], peak_bytes=r["peak"],
+        wall_ms_per_admission=r["admit_ms"], wall_ms_per_decode_step=r["decode_ms"],
+        tokens_per_wall_s=rep.tokens_per_wall_s,
+        k5_per_admission=r["launches"]["flash_attention_fwd"] / rep.prefills,
+        k7_per_decode_step=r["launches"]["paged_attention_fwd"] / rep.decode_steps,
+        launches_per_decode_step=prof["kernel_launches"],
+        device_kernel_ms_per_decode_step=prof["device_kernel_ms"],
+        device_busy_share=prof["device_busy_share"],
+        top_kernels=[(k["name"][:40], round(k["ms"], 4)) for k in prof["top_kernels"]])
+    say("serve_moe", gate_a_layer=MOE_LAYER, f32_max_abs_diff=e32, f32_ref_max_abs=scale,
+        f32_tol=f"{MOE_F32_RTOL} x max|ref|", bf16_served_from_f32=e_served,
+        bf16_plain_from_f32=e_plain, bf16_tol="the plain bf16 oracle's distance",
+        gate_b="moe_ffn_dropless of a decode step under set_sync_debug_mode('error'): held",
+        host_syncs_per_decode_step=step_syncs,
+        ffn_device_ms_on_the_prefill_input=dict(prefill_ms, tokens=PROMPT,
+                                                experts_hit=prefill_hit),
+        ffn_device_ms_on_the_decode_input=dict(decode_ms, tokens=SLOTS),
+        experts_hit_per_layer_of_a_decode_step=dict(
+            mean=sum(hit) / len(hit), min=min(hit), max=max(hit), of=cfg.num_experts,
+            tokens=SLOTS, top_k=cfg.experts_per_token))
+    return r["launches"]
+
+
+# ---- the wider configs: one admission batch and a decode step each ----- #
+ARCH_CHECKS = ("qwen2.5-14b", "yi-9b", "gemma3-12b")
+MIXTRAL_LAYERS = 8  # of 32: 32 layers are 93.4 GB in bf16, past one 80 GB card
+
+
+def float32_decode_attention(q, k, v, positions, window):
+    """The dense decode mode's attention (``attention_decode`` over the
+    gathered cache) on float32 copies of q and the cache, rounded once to
+    the model dtype: K7 keeps the scores and softmax weights in float32,
+    where the bf16 dense mode rounds both to bf16, and over 48 layers that
+    rounding alone moves the logits by about LOGITS_RTOL (the bf16 dense
+    mode against this one: 5.1 % of max |logit| at qwen2.5-14b and at
+    gemma3-12b on an H100). The kernel is held against the plain version
+    in float32 rounded once, as phase 3 holds K7."""
+    from repro_torch.models.layers import attention_decode
+
+    return attention_decode(q.float(), k.float(), v.float(), positions, window).to(q.dtype)
+
+
+def first_step(torch, cfg, model, params, prompts) -> dict:
+    """SLOTS admissions of ``prompts`` (SLOTS, PROMPT) on the device, K5 =
+    layers x SLOTS; then the first decode step of the full slot batch in
+    the dense mode with its attention in float32
+    (``float32_decode_attention``) and paged, K7 = layers in the paged
+    one; paged held within LOGITS_RTOL of the dense mode; then decode
+    steps timed. Returns the distance, the wall ms per admission and per
+    decode step, the K5 and K7 counts read, and ``decode(i)``, which
+    advances the batch one paged step (K7) from position PROMPT + i."""
+    from repro_torch.models import Runtime
+    from repro_torch.serve import paged
+
+    dev = torch.device("cuda")
+    plan = paged.PagePlan.build(cfg, PROMPT, MAX_GEN, page_size=PAGE)
+    n_tab = plan.pages_per_slot
+    pool = paged.init_pool(cfg, plan, SLOTS, SLOTS * n_tab, device=dev)
+    tokens = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
+    out_buf = torch.zeros((SLOTS + 1, MAX_GEN), dtype=torch.int32, device=dev)
+    table = torch.arange(1, SLOTS * n_tab + 1, dtype=torch.int32, device=dev).reshape(SLOTS, n_tab)
+    admit = paged.make_admit_fn(model, plan)
+    admit(params, {k: x.clone() for k, x in pool.items()}, tokens.clone(), out_buf.clone(),
+          prompts[:1], table[0, :plan.prompt_pages].long(), 0, 0)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for slot in range(SLOTS):
+        admit(params, pool, tokens, out_buf, prompts[slot:slot + 1],
+              table[slot, :plan.prompt_pages].long(), slot, slot)
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t0) / SLOTS * 1e3
+    launches = read_counts()
+    expect_launches(launches, flash_attention_fwd=cfg.num_layers * SLOTS, paged_attention_fwd=0,
+                    fedavg_apply=0, delta_sq_norms=0, delta_pipeline_apply=0,
+                    delta_pipeline_partial=0, wkv6_fwd=0)
+    positions = torch.full((SLOTS,), plan.prompt_eff, dtype=torch.int64, device=dev)
+    active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
+    logits, k7 = {}, {}
+    for mode in ("dense", "paged"):
+        zero_counts()
+        logits[mode], _ = paged._paged_transformer_step(
+            params, cfg, plan, {k: x.clone() for k, x in pool.items()}, tokens, table,
+            positions, active, Runtime(), mode, dense_attention=float32_decode_attention)
+        torch.cuda.synchronize()
+        k7[mode] = read_counts()
+        expect_launches(k7[mode], flash_attention_fwd=0,
+                        paged_attention_fwd=cfg.num_layers if mode == "paged" else 0)
+    check(bool(torch.isfinite(logits["paged"]).all()), f"{cfg.name}: non-finite logits")
+    diff = float((logits["paged"] - logits["dense"]).abs().max())
+    scale = float(logits["dense"].abs().max())
+    check(diff <= LOGITS_RTOL * scale,
+          f"{cfg.name}: paged vs dense (float32 attention) first-step logits: "
+          f"{diff} > {LOGITS_RTOL} x {scale}")
+    same = int((logits["paged"][:, -1].argmax(-1) == logits["dense"][:, -1].argmax(-1)).sum())
+    step = paged.make_decode_fn(model, plan, attn="paged")
+    out_req = torch.full((SLOTS,), SLOTS, dtype=torch.int64, device=dev)
+    out_idx = torch.zeros((SLOTS,), dtype=torch.int64, device=dev)
+    state = {"pool": pool, "tokens": tokens, "out_buf": out_buf}
+
+    def decode(i):
+        state["pool"], state["tokens"], state["out_buf"] = step(
+            params, state["pool"], state["tokens"], state["out_buf"], table, positions + i,
+            active, out_req, out_idx)
+
+    n_steps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        decode(i)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    return dict(diff=diff, scale=scale, same_next_token=same, admit_ms=admit_ms,
+                decode_ms=decode_ms, decode=decode,
+                k5_launches=launches["flash_attention_fwd"],
+                k7_launches=k7["paged"]["paged_attention_fwd"])
+
+
+def first_step_checked(torch, cfg) -> dict:
+    """``cfg`` at full width in bf16 (random weights from a seed) through
+    ``first_step``; init s and peak bytes printed beside its readings.
+    Frees the model before returning the K5 / K7 launches."""
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT), generator=gen, device=dev)
+    fs = first_step(torch, cfg, model, params, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    say("serve_archs", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        windows=sorted(set(cfg.layer_windows())), experts=cfg.num_experts,
+        params=model.param_count(), active_params=model.active_param_count(), init_s=init_s,
+        admissions=SLOTS, k5_launches=fs["k5_launches"], k7_per_paged_step=fs["k7_launches"],
+        first_step_logits_max_abs_diff_to_dense_f32_attention=fs["diff"],
+        dense_f32_attention_logits_max_abs=fs["scale"], tol=f"{LOGITS_RTOL} x max|dense f32|",
+        same_next_token_as_dense_f32_attention=f"{fs['same_next_token']} of {SLOTS}",
+        wall_ms_per_admission=fs["admit_ms"], wall_ms_per_decode_step=fs["decode_ms"],
+        peak_bytes=peak)
+    launches = {"flash_attention_fwd": fs["k5_launches"],
+                "paged_attention_fwd": fs["k7_launches"]}
+    del model, params, fs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serving_archs(torch) -> dict:
+    """qwen2.5-14b, yi-9b and gemma3-12b at full width and depth, then
+    mixtral-8x7b at full width with MIXTRAL_LAYERS layers, one at a time
+    (each freed before the next). Returns the K5 / K7 launches summed."""
+    from repro_torch.configs import get_config
+
+    total = {"flash_attention_fwd": 0, "paged_attention_fwd": 0}
+    cfgs = [get_config(a) for a in ARCH_CHECKS]
+    cfgs.append(dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS))
+    for cfg in cfgs:
+        t0 = time.perf_counter()
+        ln = first_step_checked(torch, dataclasses.replace(cfg, attn_impl="flash"))
+        for kern in total:
+            total[kern] += ln[kern]
+        say("serve_archs", arch=cfg.name, seconds=time.perf_counter() - t0,
+            reduced=(f"{MIXTRAL_LAYERS} of 32 layers" if cfg.num_experts else "nothing"))
+    return total
+
+
+def phase_async_cli(torch) -> dict:
+    """The async engine's CLI smoke on the card: ``python -m
+    repro_torch.sim.events.engine --horizon-ms 2000`` (FedBuff(4), 16
+    clients, churn), flushes > 0."""
+    from repro_torch.sim.events.engine import _smoke
+
+    zero_counts()
+    h = _smoke(["--horizon-ms", "2000"])
+    launches = read_counts()
+    check(h["num_flushes"] > 0 and h["num_dispatches"] > 0,
+          f"async smoke: {h['num_flushes']} flushes, {h['num_dispatches']} dispatches")
+    say("async_cli", horizon_ms=2000, dispatches=h["num_dispatches"],
+        flushes=h["num_flushes"], completions=h["num_completions"],
+        final_accuracy=h["final_accuracy"], launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2664,12 +3096,28 @@ def main() -> int:
     for entry in k6_entries:
         say("build", **entry)
 
+    # K5 and K7 at head_dim 256: registers and spills (printed, not gated:
+    # K5's bf16 route at 256 keeps q in shared memory and 32-key tiles)
+    for kl, kernel in ((fa_library(), "flash_fwd_bf16_kernelILi256"),
+                       (fa_library(), "flash_fwd_f32_kernelILi256"),
+                       (pa_library(), "paged_decode_split_kernelI13__nv_bfloat16Li256"),
+                       (pa_library(), "paged_decode_split_kernelIfLi256")):
+        entries = ptxas_entries(kl.log_path.read_text(), kernel)
+        check(len(entries) == 1, f"{kernel}: {len(entries)} instantiations in ptxas")
+        entry = entries[0]
+        entry.pop("mangled")
+        say("build", kernel=kernel.replace("ILi256", "<256>").replace(
+            "I13__nv_bfloat16Li256", "<bf16, 256>").replace("IfLi256", "<float, 256>"),
+            **entry)
+
     say("phase", name="build", seconds=time.perf_counter() - t_phase)
 
     # 3. kernels against their plain versions, then timing
     t_phase = time.perf_counter()
     kernels = {k["name"]: k for k in phase_kernels(torch, dp)}
     kernels.update((k["name"], k) for k in phase_attention_kernels(torch))
+    for name, rec in time_attention_256(torch).items():
+        kernels[name]["head_dim_256"] = rec
     k6 = phase_wkv6_kernel(torch)
     kernels[k6["name"]] = k6
     say("phase", name="kernels", seconds=time.perf_counter() - t_phase)
@@ -2773,6 +3221,21 @@ def main() -> int:
     say("phase", name="serving_rwkv6", seconds=time.perf_counter() - t0)
     k1_launches += launches["fedavg_apply"]
     kernels["wkv6_fwd"]["launches"] = launches["wkv6_fwd"]
+
+    # the MoE family (moonshot-v1-16b-a3b, K5 / K7 at head_dim 128, one kv
+    # head per query head), the wider dense configs (gemma3-12b: K5 and K7
+    # at head_dim 256) and mixtral-8x7b cut to 8 layers; then the async
+    # engine's CLI smoke
+    for name, fn in (("serving_moe", phase_serving_moe), ("serving_archs", phase_serving_archs),
+                     ("async_cli", phase_async_cli)):
+        t0 = time.perf_counter()
+        launches = fn(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("phase", name=name, seconds=time.perf_counter() - t0)
+        k1_launches += launches.get("fedavg_apply", 0)
+        for kern in ("flash_attention_fwd", "paged_attention_fwd"):
+            kernels[kern][f"{name}_launches"] = launches[kern]
 
     # the LM round: llama3.2-1b at full width through K3, K4 and K2
     t0 = time.perf_counter()

@@ -12,7 +12,12 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
@@ -29,8 +34,8 @@ def _module(arch_id: str):
         return importlib.import_module(_MODULES[arch_id])
     if arch_id in ARCH_IDS:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: ROADMAP.md queue 1, item 10(b) "
-            "(the model families) registers it"
+            f"{arch_id!r} is not ported yet: ROADMAP.md queue 1, item 10(b2) "
+            "(the HYBRID, VLM and ENCDEC families) registers it"
         )
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
 

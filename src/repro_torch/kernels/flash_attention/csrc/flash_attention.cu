@@ -33,13 +33,19 @@
 //     more heads take more blocks) over the same 16 rows, so each K/V tile
 //     is read once per group: grid (ceil(Sq / 16), Hkv * head blocks, B),
 //     64 blocks of 4 warps at the serving shape;
-//   * K and V tiles of TC_BKV = 64 keys stay bf16 in shared memory, filled
+//   * K and V tiles of TC_BKV = 64 keys (32 at hd 256) stay bf16 in shared memory, filled
 //     by 16-byte `cp.async.cg` copies (keys past Sk zero-filled) into rows
 //     padded by 16 bytes, so `ldmatrix` (K) and `ldmatrix.trans` (V) read
 //     without bank conflicts; two stages, so tile t+1 is in flight while
 //     tile t is multiplied (the serving shape's <= 2 tiles per block are
 //     both requested before the first product);
-//   * q fragments come straight from device memory into registers;
+//   * q fragments come straight from device memory into registers; at
+//     hd 256 (gemma3-12b) they would not fit beside the 128 accumulator
+//     registers, so the warp's 16 q rows are copied into shared memory
+//     with the first tile and read one k-step at a time, and K/V tiles
+//     hold 32 keys (64 spilled 136 bytes at 255 registers; 32 keys use 243
+//     and none; 0.314 ms at 2,048 tokens with the 1,024 window, 8 % of
+//     its tensor-core bound, chip_smoke.py on the same card);
 //   * softmax weights P stay f32 for the row sums; for P·V each is split
 //     into hi = bf16(P) and lo = bf16(P - hi), two mma per tile, so P keeps
 //     ~16 bits where the reference keeps it in f32 (plain bf16 P would
@@ -81,15 +87,25 @@ struct Strides {
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BQ = 16;    // query rows per warp (one m16 tile)
-constexpr int TC_BKV = 64;   // keys per K/V tile
+// Keys per K/V tile: 64, and 32 past hd 128, where a tile's 64 scores a
+// thread would push the 128 accumulator registers of hd 256 into spills.
+template <int HD>
+__host__ __device__ constexpr int tc_bkv() { return HD > 128 ? 32 : 64; }
 constexpr int TC_HEADS = 4;  // query heads (warps) per block at most
 constexpr int TC_STAGES = 2;
 
 template <int HD>
 __host__ __device__ constexpr int tc_ld() { return HD + 8; }  // padded row, in bf16
+// Past hd 128 a warp's q fragments (HD / 4 registers a thread) would not
+// fit beside its output accumulators (HD / 2) under the 255-register
+// limit: they stay in shared memory and are read per k-step.
+template <int HD>
+__host__ __device__ constexpr bool tc_q_smem() { return HD > 128; }
 template <int HD>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * TC_STAGES * 2 * TC_BKV * tc_ld<HD>();
+  return sizeof(__nv_bfloat16) *
+         (TC_STAGES * 2 * tc_bkv<HD>() * tc_ld<HD>() +
+          (tc_q_smem<HD>() ? TC_HEADS * TC_BQ * tc_ld<HD>() : 0));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -153,13 +169,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       int groups, int head_blocks, int window, int bidirectional,
                       float scale_log2) {
   constexpr int LD = tc_ld<HD>();
+  constexpr int TC_BKV = tc_bkv<HD>();
   constexpr int TILE = TC_BKV * LD;  // bf16 per K or V tile
   constexpr int KSTEPS = HD / 16;    // k-steps of Q·K^T
   constexpr int NB_S = TC_BKV / 8;   // 8-key column blocks of S
   constexpr int NB_O = HD / 8;       // 8-dim column blocks of O
   constexpr int CHUNKS = HD / 8;     // 16-byte chunks per row
+  constexpr bool Q_SMEM = tc_q_smem<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [stage][K|V][BKV][LD]
+  // Q_SMEM: [warp][BQ][LD] after the K/V stages
+  __nv_bfloat16* q_s = kv_s + TC_STAGES * 2 * TILE + (threadIdx.x >> 5) * TC_BQ * LD;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -203,23 +223,41 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     }
   };
 
+  const __nv_bfloat16* qh = q + b * qs.b + h * qs.h;
+  if constexpr (Q_SMEM) {
+    // The warp's 16 query rows, in the first copy group with tile t_lo
+    // (rows past sq and inactive warps zero-filled).
+    for (int i = lane; i < TC_BQ * CHUNKS; i += 32) {
+      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      const int qi = q0 + r;
+      const bool in = active && qi < sq;
+      cp_async16(smem_addr(q_s + r * LD + c), qh + (in ? qi : 0) * qs.s + c, in ? 16 : 0);
+    }
+  }
   if (t_lo < t_hi) load_tile(t_lo, 0);
   cp_async_commit();
 
-  // q fragments (A operand of Q·K^T), straight from device memory.
-  uint32_t qa[KSTEPS][4];
-  {
-    const __nv_bfloat16* qh = q + b * qs.b + h * qs.h;
+  // q fragments (A operand of Q·K^T), straight from device memory, or
+  // (Q_SMEM) a k-step's worth at a time from shared memory.
+  uint32_t qa[Q_SMEM ? 1 : KSTEPS][4];
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = q0 + r0 + (j & 1) * 8;
-        const int col = kk * 16 + c2 + (j >> 1) * 8;
-        qa[kk][j] = (active && qi < sq)
-                        ? *reinterpret_cast<const uint32_t*>(qh + qi * qs.s + col)
-                        : 0u;
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + (j & 1) * 8;
+      const int col = kk * 16 + c2 + (j >> 1) * 8;
+      if constexpr (Q_SMEM) {
+        a[j] = *reinterpret_cast<const uint32_t*>(q_s + r * LD + col);
+      } else {
+        const int qi = q0 + r;
+        a[j] = (active && qi < sq)
+                   ? *reinterpret_cast<const uint32_t*>(qh + qi * qs.s + col)
+                   : 0u;
       }
+    }
+  };
+  if constexpr (!Q_SMEM) {
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) q_frag(kk, qa[kk]);
   }
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -247,16 +285,19 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        if constexpr (Q_SMEM) q_frag(kk, qa[0]);
+        const uint32_t(&a)[4] = qa[Q_SMEM ? 0 : kk];
 #pragma unroll
         for (int nb = 0; nb < NB_S; nb += 2) {
           const int row = nb * 8 + (lane & 7) + (lane >> 4) * 8;
           const int col = kk * 16 + ((lane >> 3) & 1) * 8;
           uint32_t b0, b1, b2, b3;
           ldmatrix_x4(smem_addr(kt + row * LD + col), b0, b1, b2, b3);
-          mma_bf16(s[nb], qa[kk], b0, b1);
-          mma_bf16(s[nb + 1], qa[kk], b2, b3);
+          mma_bf16(s[nb], a, b0, b1);
+          mma_bf16(s[nb + 1], a, b2, b3);
         }
+      }
 
       // Scale in f32, by hd^-0.5·log2(e): the softmax runs in base 2 (one
       // ex2 per weight); mask per element only where the tile straddles
@@ -561,6 +602,7 @@ extern "C" int fedfog_flash_attention_fwd(
     case 32: return launch<32>(dtype, q, k, v, o, b, h, hkv, sq, sk, qs, ks, vs, os, window, bidirectional, st);
     case 64: return launch<64>(dtype, q, k, v, o, b, h, hkv, sq, sk, qs, ks, vs, os, window, bidirectional, st);
     case 128: return launch<128>(dtype, q, k, v, o, b, h, hkv, sq, sk, qs, ks, vs, os, window, bidirectional, st);
+    case 256: return launch<256>(dtype, q, k, v, o, b, h, hkv, sq, sk, qs, ks, vs, os, window, bidirectional, st);
     default: return cudaErrorInvalidValue;
   }
 }

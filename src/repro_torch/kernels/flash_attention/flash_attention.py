@@ -29,7 +29,7 @@ from repro_torch.kernels._build import load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LIBRARY = "fedfog_flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 

@@ -24,7 +24,7 @@ from repro_torch.kernels._build import load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 LIBRARY = "fedfog_paged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_PAGE = 32  # one lane per key of a page
 MAX_SPLITS = 8  # the portable cluster size
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -5,10 +5,15 @@
         --engine continuous --attn paged --flash
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --scale full \
         --engine continuous
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --scale full \
+        --engine continuous --attn paged --flash
 
-``--arch`` takes the registered architectures: llama3.2-1b (DENSE) and
-rwkv6-1.6b (SSM, prefill through K6). ``--scale tiny`` runs the reduced
-config, ``--scale full`` the assigned one on one device. Engines:
+``--arch`` takes the registered architectures: llama3.2-1b, qwen2.5-14b,
+yi-9b and gemma3-12b (DENSE), moonshot-v1-16b-a3b and mixtral-8x7b (MOE,
+the dropless FFN of ``models/moe.py``; mixtral's 93 GB do not fit one
+80 GB card at full scale) and rwkv6-1.6b (SSM, prefill through K6).
+``--scale tiny`` runs the reduced config, ``--scale full`` the assigned
+one on one device. Engines:
 
   * ``--engine static`` (default) — one fixed batch, prefill + N decode
     steps; greedy tokens accumulate in a device buffer read once at the

@@ -1,5 +1,5 @@
 """Uniform model interface (port of ``repro/models/api.py``), for the
-DENSE and SSM (rwkv6) families.
+DENSE, MOE and SSM (rwkv6) families.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods close over the
 config and dispatch on its family, as the JAX package's do:
@@ -12,7 +12,7 @@ config and dispatch on its family, as the JAX package's do:
     model.param_count() / active_param_count() / flops_per_token()
 
 Other families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them (item 10(b)).
+ports them (item 10(b2)).
 
 ``batch`` holds ``tokens`` (B, S+1): inputs and next-token targets are
 derived here, and an optional ``loss_mask`` (B, S).
@@ -30,9 +30,9 @@ from repro_torch.models.transformer import Runtime
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The families the port builds: DENSE (no experts) and SSM."""
+    """The families the port builds: DENSE, MOE and SSM."""
     if cfg.family is not Family.SSM:
-        transformer.check_dense(cfg)
+        transformer.check_trunk(cfg)
 
 
 def _mod(cfg: ModelConfig):
@@ -56,7 +56,12 @@ class Model:
         return count(decls(self.cfg))
 
     def active_param_count(self) -> int:
-        return self.param_count()  # DENSE and SSM: every parameter is active
+        """Parameters a token uses: an ``experts``-axis leaf counts by the
+        share experts_per_token / num_experts."""
+        if not self.cfg.num_experts:
+            return self.param_count()
+        return count(decls(self.cfg),
+                     active_expert_fraction=self.cfg.experts_per_token / self.cfg.num_experts)
 
     def flops_per_token(self, train: bool = True) -> float:
         """MODEL_FLOPS basis: 6·N_active (train) / 2·N_active (forward),

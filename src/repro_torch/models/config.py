@@ -2,9 +2,9 @@
 
 One dataclass describes every LM-family member of the JAX package. The
 port keeps the whole description, so a configuration reads the same in
-both packages, but builds only the DENSE and SSM (rwkv6) families for
-now: the others raise where a model is built (``models.api.build_model``),
-naming the ROADMAP item that ports them.
+both packages, but builds only the DENSE, MOE and SSM (rwkv6) families
+for now: the others raise where a model is built
+(``models.api.build_model``), naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ Attention implementations, chosen by ``ModelConfig.attn_impl`` through
     (the JAX package leaves these to XLA; the port to PyTorch's ops);
   * ``"flash"`` — K5, the hand-written flash-attention kernel
     (``kernels/flash_attention``), or its plain version on the CPU;
-  * ``"xla_chunked"`` — not ported yet (raises).
+  * ``"xla_chunked"`` — the online-softmax (flash) algorithm in plain
+    torch over q and kv chunks (the JAX package's ``jnp`` version), which
+    ``"auto"`` picks past 8,192 keys.
 
 All share the mask convention: causal + optional sliding window, where
 ``window == GLOBAL (-1)`` means unbounded.
@@ -112,6 +114,82 @@ def attention_xla(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def attention_xla_chunked(
+    q: Array, k: Array, v: Array, q_positions: Array, k_positions: Array,
+    window, *, chunk_q: int = 512, chunk_kv: int = 1024, bidirectional: bool = False,
+) -> Array:
+    """Online-softmax (flash-algorithm) attention in plain torch.
+
+    Two levels: a loop over q chunks and, inside, over kv chunks carrying
+    (m, l, acc) in float32, so live memory is O(chunk_q·chunk_kv) scores
+    instead of O(Sq·Sk). Ragged q and kv are padded to whole chunks (kv
+    padding at position int32-max, masked by causality; q padding at -1,
+    cut off). A Python-int window > 0 takes the static-window path: a q
+    chunk sees a fixed number of kv chunks from a computed offset. A
+    window given as a tensor scans every kv chunk under the mask."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    groups = h // hkv
+    scale = hd**-0.5
+    chunk_q = max(1, min(chunk_q, sq))
+    chunk_kv = max(1, min(chunk_kv, sk))
+
+    n_kv = -(-sk // chunk_kv)
+    pad_kv = n_kv * chunk_kv - sk
+    if pad_kv:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
+        k_positions = torch.nn.functional.pad(k_positions, (0, pad_kv), value=2**31 - 1)
+    kc = k.reshape(b, n_kv, chunk_kv, hkv, hd)
+    vc = v.reshape(b, n_kv, chunk_kv, hkv, hd)
+    kpos_c = k_positions.reshape(n_kv, chunk_kv)
+
+    n_q = -(-sq // chunk_q)
+    pad_q = n_q * chunk_q - sq
+    qp, q_pos_p = q, q_positions
+    if pad_q:
+        qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos_p = torch.nn.functional.pad(q_positions, (0, pad_q), value=-1)
+
+    static_window = isinstance(window, int) and window > 0
+    kw = min(n_kv, (window + chunk_q - 2) // chunk_kv + 2) if static_window else n_kv
+    outs = []
+    for qi in range(n_q):
+        q_c = qp[:, qi * chunk_q:(qi + 1) * chunk_q]
+        qp_c = q_pos_p[qi * chunk_q:(qi + 1) * chunk_q]
+        q32 = (q_c * scale).to(q_c.dtype)
+        lo = 0
+        if static_window:
+            first_q = (sk - sq) + qi * chunk_q
+            lo = min(max((first_q - window + 1) // chunk_kv, 0), n_kv - kw)
+        m = torch.full((b, h, chunk_q), _NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, chunk_q), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, chunk_q, hd), dtype=torch.float32, device=q.device)
+        for j in range(lo, lo + kw):
+            k_c = _repeat_kv(kc[:, j], groups)
+            v_c = _repeat_kv(vc[:, j], groups)
+            kp_c = kpos_c[j]
+            s = torch.einsum("bqhd,bkhd->bhqk", q32, k_c).float()
+            if bidirectional:
+                zero = torch.zeros((), dtype=torch.float32, device=q.device)
+                bias = torch.where(kp_c >= 0, zero, torch.full_like(zero, _NEG_INF))
+                s = s + bias[None, None, None]
+            else:
+                s = s + causal_window_bias(qp_c, kp_c, window)[None, None]
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            # m kept finite on fully-masked rows so exp() yields 0, not NaN
+            m_safe = torch.where(m_new <= _NEG_INF / 2, 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(torch.where(m <= _NEG_INF / 2, _NEG_INF, m) - m_safe)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v_c.dtype), v_c).float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q_c.dtype))  # (b, cq, h, hd)
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
 def attention_decode(
     q: Array, k_cache: Array, v_cache: Array, q_position: Array, window: int,
 ) -> Array:
@@ -141,9 +219,10 @@ def select_attention(
     k_positions: Array, window: int, *, chunk_q: int = 512, chunk_kv: int = 1024,
     bidirectional: bool = False,
 ) -> Array:
-    """Dispatch on attn_impl. ``window`` is a Python int: the layers run
-    as a Python loop, so it reaches the kernel as one."""
-    del chunk_q, chunk_kv  # read only by the chunked path, not ported yet
+    """Dispatch on attn_impl; "auto" = xla up to 8,192 keys, chunked past.
+    ``window`` is a Python int: the layers run as a Python loop, so it
+    reaches the kernel (and the chunked path's static-window route) as
+    one."""
     if impl == "auto":
         impl = "xla" if k.shape[1] <= 8192 else "xla_chunked"
     if impl == "xla":
@@ -151,9 +230,9 @@ def select_attention(
             q, k, v, q_positions, k_positions, window, bidirectional=bidirectional
         )
     if impl == "xla_chunked":
-        raise NotImplementedError(
-            "attn_impl='xla_chunked' is not ported yet: ROADMAP.md queue 1, "
-            "item 10(b) (the model families) brings it"
+        return attention_xla_chunked(
+            q, k, v, q_positions, k_positions, window, chunk_q=chunk_q,
+            chunk_kv=chunk_kv, bidirectional=bidirectional,
         )
     if impl == "flash":
         from repro_torch.kernels.flash_attention import ops as flash_ops

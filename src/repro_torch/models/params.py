@@ -15,6 +15,7 @@ import math
 import torch
 
 Array = torch.Tensor
+_DRAW_ELEMENTS = 1 << 27  # float32 elements drawn at once (512 MB)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +47,16 @@ def init_param(decl: ParamDecl, generator: torch.Generator) -> Array:
     std = 1.0 / math.sqrt(_fan_in(decl.shape))
     if decl.init == "normal_out":  # output-layer init, smaller
         std = std / 2.0
-    x = torch.randn(decl.shape, generator=generator, dtype=torch.float32, device=dev)
-    return x.mul_(std).to(dtype)
+    # Drawn in float32 a few leading-axis slices at a time, so the float32
+    # transient stays under _DRAW_ELEMENTS (a whole MoE expert stack, e.g.
+    # moonshot's (48, 64, 2048, 1408), would need 35 GB of it).
+    out = torch.empty(decl.shape, dtype=dtype, device=dev)
+    rows = max(1, _DRAW_ELEMENTS // max(1, math.prod(decl.shape[1:])))
+    for i in range(0, decl.shape[0], rows):
+        part = out[i:i + rows]
+        x = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=dev)
+        part.copy_(x.mul_(std))
+    return out
 
 
 def _leaves(decls, prefix=()):
@@ -71,6 +80,14 @@ def init_tree(decls, generator: torch.Generator):
     return out
 
 
-def count(decls) -> int:
-    """Number of parameters declared."""
-    return sum(math.prod(d.shape) for _, d in _leaves(decls))
+def count(decls, active_expert_fraction: float | None = None) -> int:
+    """Number of parameters declared; with ``active_expert_fraction``, an
+    ``experts``-axis leaf counts by that share (rounded down per leaf, as
+    the JAX package counts)."""
+    total = 0
+    for _, d in _leaves(decls):
+        n = math.prod(d.shape)
+        if active_expert_fraction is not None and "experts" in d.axes:
+            n = int(n * active_expert_fraction)
+        total += n
+    return total

@@ -1,5 +1,7 @@
-"""Decoder-only LM trunk, DENSE family (port of
-``repro/models/transformer.py``).
+"""Decoder-only LM trunk, DENSE and MOE families (port of
+``repro/models/transformer.py``). A config with ``num_experts`` swaps the
+dense gated MLP for the MoE FFN of ``models/moe.py``, chosen by
+``Runtime.moe_impl`` (default ``"dropless"``, the served route).
 
 Parameters keep the JAX package's stacked layout (a leading
 ``num_layers`` dim, ``wq`` as (L, d, H, hd), ``wo`` as (L, H, hd, d)), so
@@ -22,6 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import GLOBAL, Family, ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -39,7 +42,7 @@ Array = torch.Tensor
 class Runtime:
     """Execution context threaded through the apply functions. The mesh
     fields belong to the distributed path (ROADMAP item 11); the port's
-    single-device path reads none of them."""
+    single-device path reads only ``moe_impl``."""
 
     mesh: Any = None
     batch_axes: tuple[str, ...] = ("data",)
@@ -49,11 +52,13 @@ class Runtime:
     moe_group_axes: tuple[str, ...] = ()
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family is not Family.DENSE or cfg.num_experts:
+def check_trunk(cfg: ModelConfig) -> None:
+    """The trunk families the port builds: DENSE and MOE."""
+    if cfg.family not in (Family.DENSE, Family.MOE):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family.value} is not ported yet: "
-            "ROADMAP.md queue 1, item 10(b) (the model families) ports it"
+            "ROADMAP.md queue 1, item 10(b2) (the HYBRID, VLM and ENCDEC "
+            "families) ports it"
         )
 
 
@@ -61,7 +66,7 @@ def check_dense(cfg: ModelConfig) -> None:
 # Parameter declarations
 # --------------------------------------------------------------------- #
 def param_decls(cfg: ModelConfig):
-    check_dense(cfg)
+    check_trunk(cfg)
     L, d, H, Hkv, hd = (
         cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
     )
@@ -74,10 +79,17 @@ def param_decls(cfg: ModelConfig):
         "wk": ParamDecl((L, d, Hkv, hd), ("layers", "embed", "kv", "head_dim"), "normal", pd),
         "wv": ParamDecl((L, d, Hkv, hd), ("layers", "embed", "kv", "head_dim"), "normal", pd),
         "wo": ParamDecl((L, H, hd, d), ("layers", "heads", "head_dim", "embed"), "normal_out", pd),
-        "w_gate": ParamDecl((L, d, ff), ("layers", "embed", "mlp"), "normal", pd),
-        "w_up": ParamDecl((L, d, ff), ("layers", "embed", "mlp"), "normal", pd),
-        "w_down": ParamDecl((L, ff, d), ("layers", "mlp", "embed"), "normal_out", pd),
     }
+    if cfg.num_experts:
+        E = cfg.num_experts
+        layers["w_router"] = ParamDecl((L, d, E), ("layers", "embed", None), "normal", pd)
+        layers["we_gate"] = ParamDecl((L, E, d, ff), ("layers", "experts", "embed", "expert_mlp"), "normal", pd)
+        layers["we_up"] = ParamDecl((L, E, d, ff), ("layers", "experts", "embed", "expert_mlp"), "normal", pd)
+        layers["we_down"] = ParamDecl((L, E, ff, d), ("layers", "experts", "expert_mlp", "embed"), "normal_out", pd)
+    else:
+        layers["w_gate"] = ParamDecl((L, d, ff), ("layers", "embed", "mlp"), "normal", pd)
+        layers["w_up"] = ParamDecl((L, d, ff), ("layers", "embed", "mlp"), "normal", pd)
+        layers["w_down"] = ParamDecl((L, ff, d), ("layers", "mlp", "embed"), "normal_out", pd)
     if cfg.qkv_bias:
         layers["bq"] = ParamDecl((L, H, hd), ("layers", "heads", "head_dim"), "zeros", pd)
         layers["bk"] = ParamDecl((L, Hkv, hd), ("layers", "kv", "head_dim"), "zeros", pd)
@@ -164,8 +176,22 @@ def _attn_block(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
 
 
 def _ffn_block(lp, cfg: ModelConfig, x: Array, runtime: Runtime = Runtime()):
-    del runtime  # the MoE dispatch reads it; DENSE does not
-    return gated_mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act)
+    """The dense gated MLP, or the MoE FFN that ``runtime.moe_impl`` names
+    ("dropless", "gshard", "ep"; anything else the reference)."""
+    if not cfg.num_experts:
+        return gated_mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act)
+    args = (x, lp["w_router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg)
+    if runtime.moe_impl == "ep":
+        return moe_mod.moe_ffn_ep(*args, runtime.mesh, batch_axes=runtime.batch_axes,
+                                  expert_axis=runtime.expert_axis, tp_axis=runtime.tp_axis)
+    if runtime.moe_impl == "gshard":
+        return moe_mod.moe_ffn_gshard(*args, mesh=runtime.mesh,
+                                      expert_axis=runtime.expert_axis,
+                                      group_axes=runtime.moe_group_axes,
+                                      tp_axis=runtime.tp_axis)
+    if runtime.moe_impl == "dropless":
+        return moe_mod.moe_ffn_dropless(*args)
+    return moe_mod.moe_ffn_reference(*args)
 
 
 def _layer_fwd(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
@@ -198,7 +224,7 @@ def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                    runtime=Runtime(), return_kv: bool = False):
     """Full-sequence forward. Returns hidden (B,S,d) [, stacked (k, v) of
     shape (L, B, S, Hkv, hd) each]."""
-    check_dense(cfg)
+    check_trunk(cfg)
     x = embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     ks, vs = [], []
@@ -314,7 +340,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, runtime=Runtime()):
     """One-token decode. tokens: (B, 1) int. Writes the new KV into
     ``cache`` in place, advances ``cache["pos"]`` and returns
     (logits (B,1,V) f32, cache)."""
-    check_dense(cfg)
+    check_trunk(cfg)
     pos = int(cache["pos"])
     x = embed_inputs(params, cfg, tokens=tokens)
     b = x.shape[0]

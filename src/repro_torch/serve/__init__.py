@@ -11,9 +11,7 @@ of ``repro/serve``).
     costs.py     — §IV.F virtual latency/energy on ``RoundCostModel``.
     engine.py    — ``ContinuousBatchingEngine``.
     oracle.py    — ``SequentialOracle``, the per-request reference.
-
-``sweep.py`` (arrival-rate grids) is not ported yet (ROADMAP.md queue 1,
-item 12).
+    sweep.py     — ``sweep_rates``: arrival-rate grids over one engine.
 """
 from repro_torch.serve.arrivals import RequestTrace, TraceConfig, make_trace, trace_from_arrays
 from repro_torch.serve.costs import ServeCostModel
@@ -21,9 +19,11 @@ from repro_torch.serve.engine import ContinuousBatchingEngine, EngineConfig, Ser
 from repro_torch.serve.oracle import SequentialOracle
 from repro_torch.serve.paged import PagePlan
 from repro_torch.serve.scheduler import PageAllocator, SlotScheduler
+from repro_torch.serve.sweep import SweepServeResult, sweep_rates
 
 __all__ = [
     "ContinuousBatchingEngine", "EngineConfig", "PageAllocator", "PagePlan",
     "RequestTrace", "SequentialOracle", "ServeCostModel", "ServeReport",
-    "SlotScheduler", "TraceConfig", "make_trace", "trace_from_arrays",
+    "SlotScheduler", "SweepServeResult", "TraceConfig", "make_trace", "sweep_rates",
+    "trace_from_arrays",
 ]

@@ -20,8 +20,9 @@ Attention modes:
   * ``paged`` — K7, the hand-written paged decode kernel (its plain
     version on the CPU): no gathered cache is made.
 
-Families: DENSE routes through the paged KV pool; SSM (rwkv6) keeps an
-O(1) recurrent state per slot, so its "pool" is the slot-indexed state
+Families: DENSE and MOE route through the paged KV pool (MOE's FFN is
+``models/moe.py``'s, reached through ``transformer._ffn_block``); SSM
+(rwkv6) keeps an O(1) recurrent state per slot, so its "pool" is the slot-indexed state
 (``wkv`` / ``tm_x`` / ``cm_x``), its admission prefills through K6 and
 writes the final state into the slot, its decode step runs
 ``rwkv6.decode_step`` over every slot, and the attention modes and page
@@ -52,8 +53,8 @@ _SSM_STATE = ("wkv", "tm_x", "cm_x")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Continuous batching serves the families the port builds: DENSE and
-    SSM."""
+    """Continuous batching serves the families the port builds: DENSE, MOE
+    and SSM."""
     if cfg.family is Family.ENCDEC:
         raise NotImplementedError(
             "continuous batching does not cover ENCDEC: the cross-attention "
@@ -163,11 +164,12 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
 @torch.no_grad()
 def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, tokens,
                             page_table, positions, active, runtime: Runtime,
-                            attn: str):
+                            attn: str, dense_attention=attention_decode):
     """Slot-batched analogue of ``transformer.decode_step``: per-slot
     ``positions`` (S,) and the page pool instead of a contiguous cache.
     Writes the new KV into ``pool`` in place; returns (logits (S,1,V),
-    pool)."""
+    pool). ``dense_attention`` is the dense mode's attention over the
+    gathered cache (``attention_decode``'s arguments)."""
     s = tokens.shape[0]
     page = plan.page_size
     x = tf.embed_inputs(params, cfg, tokens=tokens)  # (S, 1, d)
@@ -191,7 +193,7 @@ def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, toke
         else:
             kg = gather_pages(k_pool[i], page_table)  # (S, cache_len, Hkv, hd)
             vg = gather_pages(v_pool[i], page_table)
-            out = attention_decode(q, kg, vg, positions, w_i)
+            out = dense_attention(q, kg, vg, positions, w_i)
         x = x + tf.attn_out(lp, out)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + tf._ffn_block(lp, cfg, h, runtime)

@@ -3,6 +3,8 @@ sweep runner.
 
     des.py   — ``RoundCostModel``, the latency / energy / cold-start model
                of both engines.
+    faas.py  — ``round_times_ms`` / ``round_energy_j``, its function-style
+               façade.
     sweep.py — ``run_sweep``: config grid × seed batch over the scanned
                engine or the event-driven one (``engine="async"``).
     events/  — the event-driven asynchronous engine. Imported as
@@ -12,6 +14,8 @@ sweep runner.
                close that cycle.
 """
 from repro_torch.sim.des import FaasSimConfig, RoundCostModel, RoundCosts
+from repro_torch.sim.faas import round_energy_j, round_times_ms
 from repro_torch.sim.sweep import SweepResult, run_sweep
 
-__all__ = ["FaasSimConfig", "RoundCostModel", "RoundCosts", "SweepResult", "run_sweep"]
+__all__ = ["FaasSimConfig", "RoundCostModel", "RoundCosts", "SweepResult",
+           "round_energy_j", "round_times_ms", "run_sweep"]

@@ -51,6 +51,12 @@ initial key ``fl_rng``:
     slot ``i`` with client ``c`` takes ``split(fold_in(split(kb, C)[i],
     c))`` as ``(lm.tokens, lm.copy)``.
 
+A serving trace (``repro/serve/arrivals.py``) splits ``PRNGKey(seed)``
+4 ways: ``serve.arrival``, ``serve.gen_len`` and ``serve.prompts`` take
+the first three keys (``jax.random.randint`` from ``lo`` equals ``lo``
+plus its draw from 0 over the same span, so ``gen_len``'s offset draw is
+the JAX package's).
+
 Every per-client draw takes ``ids``, the client ids of the rows, which
 default to ``arange(n)`` (the dense registry); the prior and the drift
 flags and permutation also take per-client epochs.
@@ -129,6 +135,7 @@ def _priors(seed, cids, epochs, alpha, k, offset):
 
 _FAULT_PLAN = ("attempts", "partition", "partition_frac", "fog", "corrupt")
 _ATTEMPT_SITES = {"faults.timeout": 0, "faults.crash": 1, "faults.drop": 2}
+_SERVE = {"serve.arrival": 0, "serve.gen_len": 1, "serve.prompts": 2}
 _ASYNC_FOLDS = {"churn": 101, "straggler": 102, "cohort.async": 103}
 _ASYNC_FAULTS = ("attempt0", "partition", "partition_frac", "corrupt", "noise",
                  "fog", "client")
@@ -204,6 +211,10 @@ class JaxDraws:
         return _t(jnp.concatenate(
             [jax.random.normal(k, (c, s)) for k, s in zip(keys, segments)], axis=1))
 
+    def _serve_key(self, site):
+        """``serve.arrivals.make_trace``'s split of ``PRNGKey(seed)``."""
+        return jax.random.split(jax.random.PRNGKey(self.seed), 4)[_SERVE[site]]
+
     def _init_key(self, offset: int, index: int | None = None, parts: int = 0):
         key = jax.random.PRNGKey(self.seed + offset)
         return key if index is None else jax.random.split(key, parts)[index]
@@ -253,6 +264,9 @@ class JaxDraws:
 
     def uniform(self, site, shape, lo, hi, *, round=None, index=None,
                 attempts=None, attempt=None, ids=None):
+        if site in _SERVE:
+            return _t(jax.random.uniform(self._serve_key(site), tuple(shape), minval=lo,
+                                         maxval=hi))
         if site == "lm.copy":
             return _t(_client_copy(self._lm_batch_key(round), tuple(shape[1:]),
                                    _ids(ids, shape[0])) * (hi - lo) + lo)
@@ -293,7 +307,9 @@ class JaxDraws:
         return _t(jax.vmap(lambda x: jax.random.normal(x, (k,)))(keys))
 
     def randint(self, site, shape, high, *, round=None, uses=0):
-        if site == "profiles.class":
+        if site in _SERVE:
+            key = self._serve_key(site)
+        elif site == "profiles.class":
             key = self._init_key(30, 0, 5)
         elif site == "eval.labels":
             key, _ = jax.random.split(_fresh(self.round_key(round, "eval"), uses))

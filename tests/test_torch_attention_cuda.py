@@ -85,3 +85,58 @@ def test_paged_kernel_matches_plain_version(case):
     ref = paged_attention_ref(q, kp, vp, table, lengths, window)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=2e-5)
     assert not out[s // 2].any()  # the empty slot: exact zeros
+
+
+# head_dim 256 (gemma3-12b: 16 query heads over 8 kv heads, sliding window
+# 1,024): K5 keeps q in shared memory at this width (its fragments and
+# the 256-wide accumulators would not fit the registers together), K7 is
+# the same kernel instantiated wider.
+FLASH_256_CASES = [
+    (1, 16, 8, 130, 130, 256, 0, False),  # gemma3's heads, ragged tiles
+    (1, 16, 8, 300, 300, 256, 100, False),  # a window inside the sequence
+    (2, 4, 1, 40, 90, 256, 0, False),  # Sq < Sk, GQA 4, two warps' blocks
+    (1, 8, 8, 70, 70, 256, 0, True),  # bidirectional
+]
+PAGED_256_CASES = [
+    (4, 8, 2, 256, 16, 10, -1, [160, 33, 0, 1]),  # gemma3's heads
+    (4, 8, 2, 256, 16, 10, 40, [160, 150, 17, 0]),  # window
+    (3, 2, 4, 256, 8, 40, -1, [320, 99, 0]),  # 40 pages through the ring
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_256_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_head_dim_256(case, dtype):
+    _card()
+    b, h, hkv, sq, sk, hd, window, bidir = case
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).cuda().to(dt)
+               for x in flash_inputs(b, h, hkv, sq, sk, hd, seed=3))
+    out = flash_attention_cuda(*(x.transpose(1, 2) for x in (q, k, v)), window=window,
+                               bidirectional=bidir).transpose(1, 2)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), window=window,
+                              bidirectional=bidir).to(dt)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=1e-2, atol=1e-3)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_256_CASES, ids=str)
+def test_paged_kernel_head_dim_256(case):
+    _card()
+    s, hkv, g, hd, page, n, window, lengths = case
+    q, kp, vp, table, lens = (torch.from_numpy(x).cuda()
+                              for x in paged_inputs(s, hkv, g, hd, page, n, lengths=lengths))
+    out = paged_attention(q, kp, vp, table, lens, window)
+    ref = paged_attention_ref(q, kp, vp, table, lens, window)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=2e-5)
+    raw = paged_attention_cuda(q, kp, vp, table, lens, window=max(window, 0))
+    assert not raw[lens == 0].any()
+    # bf16 pools: against the plain version in float32, rounded once
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    outb = paged_attention(qb, kb, vb, table, lens, window)
+    refb = paged_attention_ref(qb.float(), kb.float(), vb.float(), table, lens,
+                               window).to(torch.bfloat16)
+    np.testing.assert_allclose(outb.float().cpu().numpy(), refb.float().cpu().numpy(),
+                               rtol=1e-2, atol=1e-3)

@@ -10,10 +10,11 @@ on a card: ``test_torch_attention_cuda.py`` and ``chip_smoke.py``).
   at the split plan's boundary cases.
 * The host's split plan reads the table's width only.
 * K5's bf16 route: scores in f32 from exact bf16 products, the scale in
-  f32, an online softmax in base 2 over 64-key tiles, and P split into
-  bf16 hi and lo for the P·V product with f32 accumulation; held against
-  the Pallas kernel in interpret mode (and, over several tiles, the JAX
-  reference) on bf16 inputs within ``chip_smoke.ATTN_TOL["bfloat16"]``.
+  f32, an online softmax in base 2 over 64-key tiles (32 at head_dim
+  256), and P split into bf16 hi and lo for the P·V product with f32
+  accumulation; held against the Pallas kernel in interpret mode (and,
+  over several tiles, the JAX reference) on bf16 inputs within
+  ``chip_smoke.ATTN_TOL["bfloat16"]``.
 
 Inputs from a numpy seed.
 """
@@ -33,7 +34,9 @@ from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_r
 from repro_torch.kernels.paged_attention.paged_attention import MAX_SPLITS, split_plan
 
 NEG_INF = -1e30
-TC_BKV = 64  # K5's key tile on the bf16 route
+def tc_bkv(hd: int) -> int:
+    """K5's key tile on the bf16 route: 64 keys, 32 past head_dim 128."""
+    return 32 if hd > 128 else 64
 
 
 def _attn_tol():
@@ -162,7 +165,7 @@ def test_split_plan_reads_no_tensor():
 def flash_tc_emulation(q, k, v, *, window=0, bidirectional=False):
     """K5's bf16 route on bf16 q (B, H, Sq, hd), k/v (B, Hkv, Sk, hd): f32
     scores of exact bf16 products scaled by hd^-0.5·log2(e) in f32, an
-    online softmax in base 2 over 64-key tiles with the reference's
+    online softmax in base 2 over 64-key tiles (32 at hd 256) with the reference's
     guards, P·V as bf16(P)·V + bf16(P - bf16(P))·V accumulated in f32.
     Tiles the kernel skips add nothing here (their weights are
     2^(-1e30 - m_safe) = 0 and their correction 1), so every tile is
@@ -178,8 +181,9 @@ def flash_tc_emulation(q, k, v, *, window=0, bidirectional=False):
     m = torch.full((b, h, sq), NEG_INF)
     l = torch.zeros((b, h, sq))
     acc = torch.zeros((b, h, sq, hd))
-    for k0 in range(0, sk, TC_BKV):
-        kt, vt = kf[:, :, k0:k0 + TC_BKV], vf[:, :, k0:k0 + TC_BKV]
+    bkv = tc_bkv(hd)
+    for k0 in range(0, sk, bkv):
+        kt, vt = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
         sc = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * scale
         if not bidirectional:
             k_pos = k0 + torch.arange(kt.shape[2])
@@ -227,12 +231,15 @@ def test_k5_tensor_core_roundings_match_interpret_kernel(case):
 
 
 # Several 64-key tiles: the online softmax across tiles, a window that
-# drops whole tiles, ragged Sk, Sq < Sk, hd 128.
+# drops whole tiles, ragged Sk, Sq < Sk, hd 128; and hd 256 over its
+# 32-key tiles (gemma3-12b's head_dim, GQA 2, a window).
 MULTI_TILE_CASES = [
     (1, 4, 1, 150, 150, 64, 0, False),
     (1, 4, 2, 130, 130, 32, 40, False),
     (1, 2, 2, 40, 200, 128, 0, False),
     (2, 2, 1, 70, 70, 16, 0, True),
+    (1, 4, 2, 100, 100, 256, 0, False),
+    (1, 2, 1, 70, 90, 256, 24, False),
 ]
 
 

@@ -317,3 +317,50 @@ def test_unported_families_do_not_serve():
     encdec = dataclasses.replace(cfg, family=Family.ENCDEC, num_encoder_layers=2)
     with pytest.raises(NotImplementedError, match="ENCDEC"):
         paged.PagePlan.build(encdec, 8, 6)
+
+
+# --------------------------------------------------------------------- #
+# moonshot-v1-16b-a3b (the MOE family): the served FFN is the dropless
+# route of models/moe.py, in every admission and decode step
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def moe():
+    jcfg = jax_reduced("moonshot-v1-16b-a3b", loss_chunk=0, **F32)
+    jm = jax_build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tcfg = get_reduced("moonshot-v1-16b-a3b", **F32)
+    tp = convert.model_params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, jm, jp, tcfg, build_model(tcfg), tp
+
+
+def test_moe_engine_and_oracle_match_the_jax_oracle(moe):
+    """The dense-mode engine equals the port's oracle and the JAX
+    SequentialOracle token for token; the paged engine serves the same
+    tokens."""
+    jcfg, jm, jp, tcfg, tm, tp = moe
+    jt, tt = _traces(jcfg)
+    ref = JaxOracle(jm, jp, JaxEngineConfig(**ECFG)).serve(jt)
+    oracle = SequentialOracle(tm, tp, EngineConfig(**ECFG)).serve(tt)
+    rep = ContinuousBatchingEngine(tm, tp, EngineConfig(**ECFG)).serve(tt)
+    paged_rep = ContinuousBatchingEngine(tm, tp, EngineConfig(**ECFG, attn="paged")).serve(tt)
+    assert rep.completed == paged_rep.completed == oracle.completed == tt.n_requests
+    for req in range(tt.n_requests):
+        assert oracle.tokens_for(req) == ref.tokens_for(req), req
+        assert rep.tokens_for(req) == oracle.tokens_for(req), req
+        assert paged_rep.tokens_for(req) == rep.tokens_for(req), req
+    np.testing.assert_allclose(oracle.virtual_ms, ref.virtual_ms, rtol=1e-12)
+    assert rep.virtual_ms <= oracle.virtual_ms + 1e-6
+
+
+def test_moe_slot_conservation_under_rejection(moe):
+    jcfg, jm, jp, tcfg, tm, tp = moe
+    ecfg = EngineConfig(**dict(ECFG, slots=2, max_queue=1, policy="edf"))
+    _, tt = _traces(jcfg, n_requests=12, rate_per_s=5000.0)
+    rep = ContinuousBatchingEngine(tm, tp, ecfg).serve(tt)
+    assert rep.rejected > 0
+    c = rep.counters
+    assert c["arrived"] == tt.n_requests == rep.completed + rep.rejected
+    assert c["in_flight"] == c["waiting"] == 0
+    ref = SequentialOracle(tm, tp, ecfg).serve(tt)
+    for req in np.nonzero(~np.isnan(rep.latency_ms))[0]:
+        assert rep.tokens_for(int(req)) == ref.tokens_for(int(req))
