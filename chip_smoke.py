@@ -66,7 +66,11 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 multi-tile S, every hd from 16 to 128, and hd 256 at
                 gemma3-12b's 16 over 8 heads: S = 2,048 with the 1,024
                 window and global, the 128-token prefill, bidirectional and
-                float32) on both routes (bf16
+                float32; hymba-1.5b's group of 5, global and past its 1,024
+                window; internvl2-2b's 136-row prompt at hd 128;
+                seamless-m4t-medium's bidirectional encoder and cross-
+                attention, Sq 128 and Sq 1 over 128 frames, at B 8) on
+                both routes (bf16
                 tensor cores, float32 CUDA cores), K7 (paged_attention_fwd)
                 at the decode step's shape (8 slots of 129..160 tokens, page
                 16) and at edge shapes (ragged and empty slots, windows,
@@ -75,12 +79,14 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 splits, windows that kill whole splits, 40 pages through
                 the page ring; hd 256 at gemma3's g 2 over 130 pages with
                 lengths past the 1,024 window, windowed and global, and at
-                the decode step's shape), the kernel's own empty slots exact
-                zeros;
+                the decode step's shape; hymba's g 5 and internvl2's g 2
+                at hd 128), the kernel's own empty slots exact zeros;
                 then both timed at the slice's shapes beside the plain
                 version, the bound and SDPA, with K7's split plan
-                printed, and at hd 256 (K5 at 2,048 tokens, K7 at 8 slots of
-                1,025..2,080 keys, each windowed and global); K6
+                printed, at hd 256 (K5 at 2,048 tokens, K7 at 8 slots of
+                1,025..2,080 keys, each windowed and global) and at the
+                HYBRID, VLM and ENCDEC families' prefill, cross-attention
+                and decode shapes (time_attention_families); K6
                 (wkv6_fwd) held against its plain version at the rwkv6
                 prefill's shape (B=1, T=128, H=32, K=V=64, bf16), at B=2
                 with a ragged T=100, at T < 32, in float32, on strided views
@@ -206,6 +212,23 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 layers) within LOGITS_RTOL of the dense mode with its
                 attention in float32; wall ms per admission and decode
                 step and peak bytes printed;
+                serving_families: hymba-1.5b (HYBRID) and internvl2-2b
+                (VLM, 8 patch embeddings prepended) at full width and
+                depth through serving's engines and gates (K5 = layers x
+                admissions, K7 = layers x decode steps, the paged first
+                step within LOGITS_RTOL of the dense mode with float32
+                attention over the true vocab); hymba's slot SSM and conv
+                states after an admission within SSM_STATE_RTOL of each
+                layer's SSM branch in float32, and the plain selective
+                scan timed; device ms, busy share and launches of a
+                decode step (profiler) printed;
+                serving_encdec: seamless-m4t-medium at full width and
+                depth through launch/serve.py's static engine with
+                --flash (batch 8, 128 frames and tokens, 32 generated):
+                K5 = 36 a prefill + 12 a decode step and nothing else; the
+                prefill's and first decode step's logits within
+                LOGITS_RTOL of the same model on float32 plain attention;
+                wall and device ms per prefill and decode step printed;
                 async_cli: the async engine's CLI smoke
                 (sim.events.engine._smoke, FedBuff(4), 16 clients, a
                 2,000 ms horizon) on the card, flushes > 0;
@@ -1133,6 +1156,22 @@ K5_CASES = [
     ("hd 256, gemma3 prefill", 1, 16, 8, PROMPT, PROMPT, 256, 1024, False, "bfloat16"),
     ("hd 256, gqa 4, bidirectional, ragged", 2, 8, 2, 77, 77, 256, 0, True, "bfloat16"),
     ("hd 256, float32, window", 1, 4, 2, 300, 300, 256, 100, False, "float32"),
+    # the HYBRID, VLM and ENCDEC families: hymba-1.5b's group of 5 (25 over
+    # 5 heads of 64), global and past its 1,024 window; internvl2-2b's
+    # 136-row prompt (128 tokens and 8 patches) at head_dim 128;
+    # seamless-m4t-medium's bidirectional encoder and cross-attention (16
+    # over 16 heads of 64; Sq 128 and Sq 1 against 128 source frames)
+    ("hymba prefill, gqa 5", 1, 25, 5, PROMPT, PROMPT, 64, 1024, False, "bfloat16"),
+    ("hymba, gqa 5, past the window", 1, 25, 5, 1100, 1100, 64, 1024, False, "bfloat16"),
+    ("hymba, gqa 5, global, S 1100", 1, 25, 5, 1100, 1100, 64, 0, False, "bfloat16"),
+    ("hymba, gqa 5, float32", 1, 25, 5, 200, 200, 64, 0, False, "float32"),
+    ("internvl2 prefill, 136 rows", 1, 16, 8, PROMPT + 8, PROMPT + 8, 128, 0, False,
+     "bfloat16"),
+    ("seamless encoder / cross, Sq 128, Sk 128", 8, 16, 16, PROMPT, PROMPT, 64, 0, True,
+     "bfloat16"),
+    ("seamless decoder, causal", 8, 16, 16, PROMPT, PROMPT, 64, 0, False, "bfloat16"),
+    ("seamless decode cross, Sq 1, Sk 128", 8, 16, 16, 1, PROMPT, 64, 0, True, "bfloat16"),
+    ("seamless cross, Sq 1, float32", 8, 16, 16, 1, PROMPT, 64, 0, True, "float32"),
 ]
 # K7 at head_dim 256: 130 pages of 16 (2,080 keys: 8 blocks of 17 pages)
 K7_256_PAGES = 130
@@ -1165,6 +1204,14 @@ K7_CASES = [
      K7_256_LENGTHS),
     ("hd 256, gemma3 decode step", SLOTS, 8, 2, 256, PAGE, 10, 1024, "bfloat16", None),
     ("hd 256, float32, window", 4, 2, 4, 256, PAGE, 20, 100, "float32", [320, 101, 0, 7]),
+    # hymba-1.5b's decode (g 5, hd 64), its window and the global layers;
+    # internvl2-2b's (g 2, hd 128) over 136 + 32 positions
+    ("hymba decode step, gqa 5", SLOTS, 5, 5, 64, PAGE, 10, 1024, "bfloat16", None),
+    ("hymba, gqa 5, past the window", 4, 5, 5, 64, PAGE, 80, 1024, "bfloat16",
+     [1280, 1025, 1024, 0]),
+    ("hymba, gqa 5, float32", 4, 5, 5, 64, PAGE, 80, -1, "float32", [1280, 1, 700, 0]),
+    ("internvl2 decode step", SLOTS, 8, 2, 128, PAGE, 11, -1, "bfloat16",
+     [137, 168, 140, 0, 1, 150, 160, 138]),
 ]
 # bf16 outputs: the kernel and the plain version both compute in float32
 # and round once to bf16, in another order; they may land one bf16 step
@@ -1425,6 +1472,102 @@ def time_attention_256(torch) -> dict:
     return out
 
 
+# ---- K5 and K7 at the HYBRID, VLM and ENCDEC families' shapes, timed -- #
+# (name, B, H, Hkv, Sq, Sk, hd, window (0 = global), bidirectional): the
+# prefill and cross-attention shapes each family's path gives K5
+K5_FAMILY_TIMES = [
+    ("hymba prefill", 1, 25, 5, PROMPT, PROMPT, 64, 1024, False),
+    ("hymba, S 2048, window 1024", 1, 25, 5, 2048, 2048, 64, 1024, False),
+    ("internvl2 prefill", 1, 16, 8, PROMPT + 8, PROMPT + 8, 128, 0, False),
+    ("seamless encoder", 8, 16, 16, PROMPT, PROMPT, 64, 0, True),
+    ("seamless decoder", 8, 16, 16, PROMPT, PROMPT, 64, 0, False),
+    ("seamless prefill cross", 8, 16, 16, PROMPT, PROMPT, 64, 0, True),
+    ("seamless decode cross", 8, 16, 16, 1, PROMPT, 64, 0, True),
+]
+# (name, Hkv, g, hd, pages per slot, window (model convention)): one decode
+# step of 8 slots at 129..168 positions
+K7_FAMILY_TIMES = [
+    ("hymba decode, window", 5, 5, 64, 10, 1024),
+    ("internvl2 decode", 8, 2, 128, 11, -1),
+]
+
+
+def time_attention_families(torch) -> dict:
+    """K5 and K7 at the shapes of hymba-1.5b, internvl2-2b and
+    seamless-m4t-medium, bf16, beside the plain version, the bound and
+    SDPA. Returns {kernel: {case: {ms, plain_ms, bound_ms, bound_by,
+    library_ms}}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import gather_pages, paged_attention_ref
+    from repro_torch.kernels.paged_attention.paged_attention import paged_attention_cuda
+
+    dev = torch.device("cuda")
+    bf, el = torch.bfloat16, 2
+    out = {"flash_attention_fwd": {}, "paged_attention_fwd": {}}
+
+    def record(kern, name, t, nbytes, ops, **shape):
+        by = (nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S)
+        rec = {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": max(by) * 1e3,
+               "bound_by": "bytes" if by[0] >= by[1] else "operations",
+               "library_ms": t["library"]}
+        out[kern][name] = rec
+        say("timing", kernel=kern, case=repr(name), dtype="bfloat16", **shape, bytes=nbytes,
+            operations=ops, **rec, share_of_bound=rec["bound_ms"] / rec["ms"])
+
+    for i, (name, b, h, hkv, sq, sk, hd, win, bidir) in enumerate(K5_FAMILY_TIMES):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(300 + i)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
+                   ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=dev)[None, :]
+        vis = (kpos <= qpos) & ((qpos - kpos < win) if win else True)
+        if bidir:
+            lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)  # noqa: E731
+        elif win and win < sk:
+            lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=vis, enable_gqa=True)
+        else:
+            lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        n = 200 if sq * sk <= PROMPT * PROMPT else 50
+        t = {"kernel": cuda_ms(lambda i: flash_attention_cuda(q, k, v, window=win,
+                                                               bidirectional=bidir), n),
+             "plain": cuda_ms(lambda i: flash_attention_ref(qt, kt, vt, window=win,
+                                                            bidirectional=bidir), 20, 2),
+             "library": cuda_ms(lib, n)}
+        pairs = sq * sk if bidir else causal_pairs(sq, sk, win)
+        record("flash_attention_fwd", name, t,
+               el * b * (2 * sq * h * hd + 2 * sk * hkv * hd), 4 * b * h * pairs * hd,
+               B=b, H=h, Hkv=hkv, Sq=sq, Sk=sk, hd=hd, window=win, bidirectional=bidir)
+    for i, (name, hkv, g, hd, n_tab, win) in enumerate(K7_FAMILY_TIMES):
+        h = hkv * g
+        pq, kp, vp, table, lens = paged_inputs(torch, SLOTS, hkv, g, hd, PAGE, n_tab,
+                                               "bfloat16", None, 400 + i, dev)
+        kg = gather_pages(kp, table).transpose(1, 2).contiguous()
+        vg = gather_pages(vp, table).transpose(1, 2).contiguous()
+        kpos = torch.arange(n_tab * PAGE, device=dev)[None, :]
+        qpos = lens[:, None].long() - 1
+        kvis = (kpos <= qpos) & ((qpos - kpos < win) if win > 0 else True)
+        kmask = kvis[:, None, None, :]
+        t = {"kernel": cuda_ms(lambda i: paged_attention_cuda(pq, kp, vp, table, lens,
+                                                              window=max(win, 0)), 400),
+             "plain": cuda_ms(lambda i: paged_attention_ref(pq, kp, vp, table, lens, win),
+                              50, 2),
+             "library": cuda_ms(lambda i: F.scaled_dot_product_attention(
+                 pq[:, :, None], kg, vg, attn_mask=kmask, enable_gqa=True), 400)}
+        live = int(torch.clamp(lens, max=win).sum()) if win > 0 else int(lens.sum())
+        record("paged_attention_fwd", name, t,
+               el * (2 * live * hkv * hd + 2 * SLOTS * h * hd) + 4 * (SLOTS * n_tab + SLOTS),
+               4 * live * h * hd, slots=SLOTS, Hkv=hkv, g=g, hd=hd, page=PAGE, window=win,
+               lengths=lens.tolist())
+    return out
+
+
 # ---- K6 (the RWKV6 recurrence) ---------------------------------------- #
 # rwkv6-1.6b's prefill: 32 wkv heads of 64, one 128-token prompt (B = 1).
 RWKV_HEADS = 32
@@ -1605,7 +1748,8 @@ LOGITS_RTOL = 0.05  # of the dense logits' max |value|
 
 
 def serve_checked(torch, cfg) -> dict:
-    """The serving path of a DENSE or MOE config at full width in bf16 on
+    """The serving path of a DENSE, MOE, HYBRID or VLM config at full width
+    in bf16 on
     the card (random weights from a seed): ContinuousBatchingEngine with
     prefill through K5 (attn_impl "flash") and decode through K7 (attn
     "paged"), after the dense-mode engine on the same trace, and the gates
@@ -1673,7 +1817,12 @@ def serve_checked(torch, cfg) -> dict:
     # First decode step of a full slot batch, paged vs dense, on one pool;
     # then wall time per admission and per decode step (these launches
     # are outside the counted run).
-    fs = first_step(torch, cfg, model, params, torch.from_numpy(trace.prompts[:SLOTS]).cuda())
+    embeds = None
+    if trace.patch_embeds is not None:
+        embeds = torch.from_numpy(trace.patch_embeds[:SLOTS]).cuda().to(
+            getattr(torch, cfg.compute_dtype))
+    fs = first_step(torch, cfg, model, params, torch.from_numpy(trace.prompts[:SLOTS]).cuda(),
+                    embeds)
     say("serve", arch=cfg.name, engine="continuous", attn="paged", attn_impl=cfg.attn_impl,
         completed=rep.completed, rejected=rep.rejected, prefills=rep.prefills,
         decode_steps=rep.decode_steps, tokens=rep.tokens_generated, counters=c,
@@ -2764,7 +2913,7 @@ def phase_serving_moe(torch) -> dict:
     a whole decode step. Returns the counted run's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
-    from repro_torch.tools.profile_serve import _profile
+    from repro_torch.tools.profile_serve import profile_calls
 
     cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), attn_impl="flash")
     r = serve_checked(torch, cfg)
@@ -2821,7 +2970,7 @@ def phase_serving_moe(torch) -> dict:
     del recs, lp, xd, yd
     torch.cuda.synchronize()
     step_syncs = count_syncs(torch, lambda: r["decode"](1))
-    prof = _profile(lambda i: r["decode"](2 + i), 2, 3)
+    prof = profile_calls(lambda i: r["decode"](2 + i), 2, 3)
     rep = r["rep"]
     say("serve_moe", arch=cfg.name, params=model.param_count(),
         active_params=model.active_param_count(), init_s=r["init_s"], peak_bytes=r["peak"],
@@ -2866,9 +3015,10 @@ def float32_decode_attention(q, k, v, positions, window):
     return attention_decode(q.float(), k.float(), v.float(), positions, window).to(q.dtype)
 
 
-def first_step(torch, cfg, model, params, prompts) -> dict:
-    """SLOTS admissions of ``prompts`` (SLOTS, PROMPT) on the device, K5 =
-    layers x SLOTS; then the first decode step of the full slot batch in
+def first_step(torch, cfg, model, params, prompts, embeds=None) -> dict:
+    """SLOTS admissions of ``prompts`` (SLOTS, PROMPT) on the device (a VLM
+    config's ``embeds`` (SLOTS, n_patches, d) prepended), K5 = layers x
+    SLOTS; then the first decode step of the full slot batch in
     the dense mode with its attention in float32
     (``float32_decode_attention``) and paged, K7 = layers in the paged
     one; paged held within LOGITS_RTOL of the dense mode; then decode
@@ -2886,13 +3036,17 @@ def first_step(torch, cfg, model, params, prompts) -> dict:
     out_buf = torch.zeros((SLOTS + 1, MAX_GEN), dtype=torch.int32, device=dev)
     table = torch.arange(1, SLOTS * n_tab + 1, dtype=torch.int32, device=dev).reshape(SLOTS, n_tab)
     admit = paged.make_admit_fn(model, plan)
+
+    def extra(slot):
+        return [] if embeds is None else [embeds[slot:slot + 1]]
+
     admit(params, {k: x.clone() for k, x in pool.items()}, tokens.clone(), out_buf.clone(),
-          prompts[:1], table[0, :plan.prompt_pages].long(), 0, 0)  # warm-up
+          prompts[:1], *extra(0), table[0, :plan.prompt_pages].long(), 0, 0)  # warm-up
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
     for slot in range(SLOTS):
-        admit(params, pool, tokens, out_buf, prompts[slot:slot + 1],
+        admit(params, pool, tokens, out_buf, prompts[slot:slot + 1], *extra(slot),
               table[slot, :plan.prompt_pages].long(), slot, slot)
     torch.cuda.synchronize()
     admit_ms = (time.perf_counter() - t0) / SLOTS * 1e3
@@ -2913,8 +3067,10 @@ def first_step(torch, cfg, model, params, prompts) -> dict:
         expect_launches(k7[mode], flash_attention_fwd=0,
                         paged_attention_fwd=cfg.num_layers if mode == "paged" else 0)
     check(bool(torch.isfinite(logits["paged"]).all()), f"{cfg.name}: non-finite logits")
-    diff = float((logits["paged"] - logits["dense"]).abs().max())
-    scale = float(logits["dense"].abs().max())
+    # over the true vocab: the padded rows' logits are -1e30 in both
+    v = cfg.vocab_size
+    diff = float((logits["paged"][..., :v] - logits["dense"][..., :v]).abs().max())
+    scale = float(logits["dense"][..., :v].abs().max())
     check(diff <= LOGITS_RTOL * scale,
           f"{cfg.name}: paged vs dense (float32 attention) first-step logits: "
           f"{diff} > {LOGITS_RTOL} x {scale}")
@@ -2997,6 +3153,279 @@ def phase_serving_archs(torch) -> dict:
         say("serve_archs", arch=cfg.name, seconds=time.perf_counter() - t0,
             reduced=(f"{MIXTRAL_LAYERS} of 32 layers" if cfg.num_experts else "nothing"))
     return total
+
+
+# ---- the HYBRID and VLM families: continuous batching, K5 and K7 -------- #
+FAMILY_ARCHS = ("hymba-1.5b", "internvl2-2b")
+# hymba's slot states after an admission against the SSM branch of each
+# layer recomputed in float32 (float32 copies of the branch's weights, on
+# the layer's own bf16 input): the bf16 branch rounds its projections and
+# the conv output to bf16 (a relative step of 2^-8) before the float32
+# scan, which sums 128 decayed steps of them. Held per layer to
+# SSM_STATE_RTOL of the float32 state's max |value|.
+SSM_STATE_RTOL = 0.02
+
+
+@contextlib.contextmanager
+def recorded_ssm_inputs(records):
+    """Record each hybrid layer's (layer params, normed input) as the
+    model's SSM branch receives them."""
+    from repro_torch.models import transformer as tf
+
+    real = tf._ssm_branch
+
+    def recorded(lp, cfg, x, state=None, conv_state=None):
+        records.append((lp, x))
+        return real(lp, cfg, x, state, conv_state)
+
+    tf._ssm_branch = recorded
+    try:
+        yield
+    finally:
+        tf._ssm_branch = real
+
+
+def hymba_states_checked(torch, cfg, model, params, prompt) -> dict:
+    """One admission into slot 3 of a fresh pool: every layer's slot SSM
+    and conv states against the float32 branch on that layer's input; the
+    other slots' states stay zero. Then the plain selective scan alone at
+    the admission's shape, timed (it runs once per layer per admission)."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import paged
+
+    dev = torch.device("cuda")
+    plan = paged.PagePlan.build(cfg, PROMPT, MAX_GEN, page_size=PAGE)
+    n_tab = plan.pages_per_slot
+    pool = paged.init_pool(cfg, plan, SLOTS, SLOTS * n_tab, device=dev)
+    tokens = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
+    out_buf = torch.zeros((SLOTS + 1, MAX_GEN), dtype=torch.int32, device=dev)
+    pages = torch.arange(1, plan.prompt_pages + 1, device=dev)
+    records = []
+    with recorded_ssm_inputs(records):
+        paged.make_admit_fn(model, plan)(params, pool, tokens, out_buf, prompt, pages, 3, 3)
+    check(len(records) == cfg.num_layers, f"{len(records)} SSM branches recorded")
+    errs = {"ssm_state": 0.0, "conv_state": 0.0}
+    with torch.no_grad():
+        for i, (lp, hs) in enumerate(records):
+            lp32 = {k: v.float() for k, v in lp.items() if k.startswith("ssm_")}
+            _, s32, c32 = tf._ssm_branch(lp32, cfg, hs.float())
+            for key, ref in (("ssm_state", s32[0]), ("conv_state", c32[0])):
+                got = pool[key][i, 3]
+                err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                check(bool(torch.isfinite(got).all()), f"{cfg.name} layer {i}: {key} non-finite")
+                check(err <= SSM_STATE_RTOL, f"{cfg.name} layer {i}: {key} {err} of max "
+                      f"|float32| > {SSM_STATE_RTOL}")
+                errs[key] = max(errs[key], err)
+        others = [s for s in range(SLOTS) if s != 3]
+        for key in errs:
+            check(not bool(pool[key][:, others].any()), f"{cfg.name}: {key} of another slot")
+        # the plain scan at the admission's shape: (1, PROMPT, d_inner), state 16
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        di, st = cfg.d_inner, cfg.ssm_state
+        x, dt = (torch.randn((1, PROMPT, di), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        b, c = (torch.randn((1, PROMPT, st), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        dt = dt.abs()
+        a_log = torch.zeros((di, st), device=dev)
+        d = torch.ones((di,), device=dev)
+        scan_ms = cuda_ms(lambda i: ssm.selective_scan(x, dt, a_log, b, c, d), 10, 2)
+    return dict(max_ssm_state_err=errs["ssm_state"], max_conv_state_err=errs["conv_state"],
+                tol=f"{SSM_STATE_RTOL} x max|float32| per layer",
+                selective_scan_ms=scan_ms,
+                selective_scan_ms_per_admission=scan_ms * cfg.num_layers)
+
+
+def phase_serving_families(torch) -> dict:
+    """hymba-1.5b (HYBRID) and internvl2-2b (VLM) at full width and depth
+    through ``serve_checked``: the continuous engine with K5 prefill and K7
+    decode, exact launch counts, the paged first step within LOGITS_RTOL
+    of the dense mode with float32 attention; hymba's slot states against
+    the float32 branch; the device time of a decode step under the
+    profiler. One at a time, each freed before the next. Returns the
+    engines' launches summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Family
+    from repro_torch.tools.profile_serve import profile_calls
+
+    total = {name: 0 for name in kernel_counters()}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        torch.cuda.empty_cache()
+        r = serve_checked(torch, cfg)
+        for kern in total:
+            total[kern] += r["launches"][kern]
+        extra = {}
+        if cfg.family is Family.HYBRID:
+            prompt = torch.from_numpy(r["trace"].prompts[:1]).cuda()
+            extra = hymba_states_checked(torch, cfg, r["model"], r["params"], prompt)
+        prof = profile_calls(r["decode"], 10, 5)
+        rep = r["rep"]
+        say("serve_families", arch=cfg.name, family=cfg.family.value, layers=cfg.num_layers,
+            d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, params=r["model"].param_count(), init_s=r["init_s"],
+            peak_bytes=r["peak"], prefills=rep.prefills, decode_steps=rep.decode_steps,
+            k5_launches=r["launches"]["flash_attention_fwd"],
+            k7_launches=r["launches"]["paged_attention_fwd"],
+            wall_ms_per_admission=r["admit_ms"], wall_ms_per_decode_step=r["decode_ms"],
+            k7_per_decode_step=r["k7_launches"],
+            device_kernel_ms_per_decode_step=prof["device_kernel_ms"],
+            device_busy_share_of_decode_step=prof["device_busy_share"],
+            launches_per_decode_step=prof["kernel_launches"],
+            tokens_per_wall_s=rep.tokens_per_wall_s, seconds=time.perf_counter() - t0,
+            reduced="nothing", **extra)
+        del r, rep, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---- the ENCDEC family: the static engine, K5 everywhere but decode self #
+SEAMLESS = dict(batch=SLOTS, frames=PROMPT, gen=MAX_GEN)
+SEAMLESS_ARGV = ["--arch", "seamless-m4t-medium", "--scale", "full", "--engine", "static",
+                 "--flash", "--batch", str(SLOTS), "--prompt-len", str(PROMPT),
+                 "--gen", str(MAX_GEN)]
+
+
+@contextlib.contextmanager
+def float32_plain_attention():
+    """The plain attention (``attention_xla``) on float32 copies of q, k
+    and v, rounded once to the model dtype: the reference K5 is held
+    against (K5 keeps its softmax weights in float32, where the bf16
+    plain path rounds them to bf16 before p·v)."""
+    from repro_torch.models import layers
+
+    real = layers.attention_xla
+
+    def f32(q, k, v, *args, **kw):
+        return real(q.float(), k.float(), v.float(), *args, **kw).to(q.dtype)
+
+    layers.attention_xla = f32
+    try:
+        yield
+    finally:
+        layers.attention_xla = real
+
+
+def phase_serving_encdec(torch) -> dict:
+    """seamless-m4t-medium at full width and depth through
+    ``launch/serve.py``'s static engine with ``--flash`` (batch 8, 128
+    frames and 128 tokens, 32 generated): K5 = 36 per prefill (12 encoder,
+    12 decoder, 12 cross) + 12 per decode step, nothing else; then the
+    prefill's and the first decode step's logits against the same bf16
+    model with ``attn_impl="xla"`` on float32 attention, within
+    LOGITS_RTOL; wall and device time per admission (the batch's prefill)
+    and per decode step. Returns the counted run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build_model
+    from repro_torch.tools.profile_serve import profile_calls
+
+    dev = torch.device("cuda")
+    b, gen_len = SEAMLESS["batch"], SEAMLESS["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = launch.main(SEAMLESS_ARGV)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), attn_impl="flash")
+    L, Le = cfg.num_layers, cfg.num_encoder_layers
+    expect_launches(launches, flash_attention_fwd=(Le + 2 * L) + L * (gen_len - 1),
+                    paged_attention_fwd=0, fedavg_apply=0, delta_sq_norms=0,
+                    delta_pipeline_apply=0, delta_pipeline_partial=0, wkv6_fwd=0)
+    check(tuple(out.shape) == (b, gen_len), f"seamless: output {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "seamless: token out of range")
+
+    # the same weights and batch as the launcher's (seed 0), K5 against
+    # the float32 plain attention
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = model.init(g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref_model = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    batch, cache_len = launch.static_batch(cfg, b, PROMPT, gen_len, 0, dev)
+    diffs = {}
+    with torch.no_grad():
+        zero_counts()
+        logits, cache = model.prefill(params, batch, cache_len=cache_len)
+        check(read_counts()["flash_attention_fwd"] == Le + 2 * L, "seamless: K5 per prefill")
+        with float32_plain_attention():
+            ref_logits, ref_cache = ref_model.prefill(params, batch, cache_len=cache_len)
+        tok = torch.argmax(ref_logits[:, -1], dim=-1)[:, None]
+        diffs["prefill"] = (logits, ref_logits)
+        zero_counts()
+        step_logits, cache = model.decode_step(params, cache, tok)
+        check(read_counts()["flash_attention_fwd"] == L, "seamless: K5 per decode step")
+        with float32_plain_attention():
+            ref_step, ref_cache = ref_model.decode_step(params, ref_cache, tok)
+        diffs["first decode step"] = (step_logits, ref_step)
+    report = {}
+    for what, (got, ref) in diffs.items():
+        check(bool(torch.isfinite(got).all()), f"seamless {what}: non-finite logits")
+        v = cfg.vocab_size  # the padded rows' logits are -1e30 in both
+        diff = float((got[..., :v] - ref[..., :v]).abs().max())
+        scale = float(ref[..., :v].abs().max())
+        check(diff <= LOGITS_RTOL * scale, f"seamless {what}: flash vs float32 plain "
+              f"attention logits {diff} > {LOGITS_RTOL} x {scale}")
+        same = int((got[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).sum())
+        report[what] = dict(max_abs_diff=diff, ref_max_abs=scale,
+                            same_argmax=f"{same} of {b}")
+
+    state = {}
+
+    @torch.no_grad()
+    def admit(i):
+        lg, state["cache"] = model.prefill(params, batch, cache_len=cache_len)
+        state["tok"] = torch.argmax(lg[:, -1], dim=-1)[:, None]
+
+    @torch.no_grad()
+    def decode(i):
+        state["cache"]["pos"] = PROMPT + i % (gen_len - 1)
+        lg, state["cache"] = model.decode_step(params, state["cache"], state["tok"])
+        state["tok"] = torch.argmax(lg[:, -1], dim=-1)[:, None]
+
+    admit(0)
+    timed = {}
+    for name, fn, n in (("admission", admit, 3), ("decode_step", decode, 10)):
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        timed[name] = (time.perf_counter() - t0) / n * 1e3
+    prof = profile_calls(decode, 10, 5)
+    prof_admit = profile_calls(admit, 2, 5)
+    say("serve_encdec", arch=cfg.name, layers=f"{Le} encoder + {L} decoder",
+        d_model=cfg.d_model, heads=cfg.num_heads, vocab=cfg.vocab_size,
+        params=model.param_count(), init_s=init_s, batch=b, frames=PROMPT, tokens=PROMPT,
+        generated=gen_len, launcher_run_s=run_s, peak_bytes=peak, launches=launches,
+        k5_per_prefill=Le + 2 * L, k5_per_decode_step=L,
+        logits_vs_float32_plain_attention=report, tol=f"{LOGITS_RTOL} x max|ref|",
+        wall_ms_per_admission=timed["admission"], wall_ms_per_decode_step=timed["decode_step"],
+        device_kernel_ms_per_admission=prof_admit["device_kernel_ms"],
+        device_kernel_ms_per_decode_step=prof["device_kernel_ms"],
+        device_busy_share_of_decode_step=prof["device_busy_share"],
+        launches_per_decode_step=prof["kernel_launches"],
+        tokens_per_wall_s=b * gen_len / ((timed["admission"]
+                                          + (gen_len - 1) * timed["decode_step"]) / 1e3),
+        reduced="nothing")
+    del model, params, ref_model, cache, ref_cache, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_async_cli(torch) -> dict:
@@ -3118,6 +3547,8 @@ def main() -> int:
     kernels.update((k["name"], k) for k in phase_attention_kernels(torch))
     for name, rec in time_attention_256(torch).items():
         kernels[name]["head_dim_256"] = rec
+    for name, rec in time_attention_families(torch).items():
+        kernels[name]["families"] = rec
     k6 = phase_wkv6_kernel(torch)
     kernels[k6["name"]] = k6
     say("phase", name="kernels", seconds=time.perf_counter() - t_phase)
@@ -3224,9 +3655,14 @@ def main() -> int:
 
     # the MoE family (moonshot-v1-16b-a3b, K5 / K7 at head_dim 128, one kv
     # head per query head), the wider dense configs (gemma3-12b: K5 and K7
-    # at head_dim 256) and mixtral-8x7b cut to 8 layers; then the async
-    # engine's CLI smoke
+    # at head_dim 256) and mixtral-8x7b cut to 8 layers; hymba-1.5b (K5 and
+    # K7 at a group of 5, beside the SSM branch) and internvl2-2b (136-row
+    # prompts) through the continuous engine; seamless-m4t-medium through
+    # the static engine (K5 on its encoder, decoder and cross-attention);
+    # then the async engine's CLI smoke
     for name, fn in (("serving_moe", phase_serving_moe), ("serving_archs", phase_serving_archs),
+                     ("serving_families", phase_serving_families),
+                     ("serving_encdec", phase_serving_encdec),
                      ("async_cli", phase_async_cli)):
         t0 = time.perf_counter()
         launches = fn(torch)

@@ -1,9 +1,9 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
-``get_config(arch_id)`` returns the assigned ``ModelConfig``; the port
-registers the architectures whose family it builds. The rest of the JAX
-package's roster (``ARCH_IDS``) raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+``get_config(arch_id)`` returns the assigned ``ModelConfig``;
+``ARCH_IDS`` is the roster, the JAX package's ten. The documented shape
+skips (``get_skips``) and ``configs/shapes.py`` belong to the
+distributed path (ROADMAP.md queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -18,26 +18,19 @@ _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
-# The JAX package's roster; the ones not in _MODULES come with their family.
-ARCH_IDS = (
-    "qwen2.5-14b", "yi-9b", "gemma3-12b", "llama3.2-1b", "moonshot-v1-16b-a3b",
-    "mixtral-8x7b", "seamless-m4t-medium", "hymba-1.5b", "rwkv6-1.6b",
-    "internvl2-2b",
-)
+ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch_id: str):
-    if arch_id in _MODULES:
-        return importlib.import_module(_MODULES[arch_id])
-    if arch_id in ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: ROADMAP.md queue 1, item 10(b2) "
-            "(the HYBRID, VLM and ENCDEC families) registers it"
-        )
-    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[arch_id])
 
 
 def get_config(arch_id: str) -> ModelConfig:

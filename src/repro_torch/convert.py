@@ -83,9 +83,11 @@ def model_params_from_jax(cfg, params, device=None):
     anything ``np.asarray`` takes) -> the port's, on the CUDA card unless
     ``device`` names another. Both packages keep one layout (``wq`` as
     (L, d, H, hd) and so on), so each leaf carries over as it is, in its
-    own dtype (rwkv6's ``decay`` and ``u`` are float32 in a bf16 tree);
-    the tree is checked against the declarations of ``cfg``'s family, in
-    keys, shapes and dtypes."""
+    own dtype (rwkv6's ``decay`` and ``u``, hymba's ``ssm_a_log``,
+    ``ssm_d`` and ``ssm_dt_bias`` are float32 in a bf16 tree); the tree
+    is checked against the declarations of ``cfg``'s family (seamless's
+    ``enc_layers`` / ``dec_layers`` with its ``x_`` cross-attention
+    leaves included), in keys, shapes and dtypes."""
     from repro_torch.models.api import decls as family_decls
 
     device = resolve_device(device)

@@ -7,11 +7,19 @@
         --engine continuous
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --scale full \
         --engine continuous --attn paged --flash
+    python -m repro_torch.launch.serve --arch hymba-1.5b --scale full \
+        --engine continuous --attn paged --flash
+    python -m repro_torch.launch.serve --arch seamless-m4t-medium --scale full \
+        --engine static --flash --batch 8 --prompt-len 128 --gen 32
 
 ``--arch`` takes the registered architectures: llama3.2-1b, qwen2.5-14b,
 yi-9b and gemma3-12b (DENSE), moonshot-v1-16b-a3b and mixtral-8x7b (MOE,
 the dropless FFN of ``models/moe.py``; mixtral's 93 GB do not fit one
-80 GB card at full scale) and rwkv6-1.6b (SSM, prefill through K6).
+80 GB card at full scale), rwkv6-1.6b (SSM, prefill through K6),
+hymba-1.5b (HYBRID: attention beside an SSM branch), internvl2-2b (VLM:
+8 random patch embeddings prepended to each prompt) and
+seamless-m4t-medium (ENCDEC: ``--prompt-len`` random source frames and
+as many target tokens; the static engine only, as in the JAX launcher).
 ``--scale tiny`` runs the reduced config, ``--scale full`` the assigned
 one on one device. Engines:
 
@@ -108,16 +116,13 @@ def main(argv=None):
 def _run_static(args, cfg, model, params, device, tap):
     import torch
 
-    cache_len = args.prompt_len + args.gen
-    g = torch.Generator(device=device)
-    g.manual_seed(args.seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=g, device=device)
+    batch, cache_len = static_batch(cfg, args.batch, args.prompt_len, args.gen,
+                                    args.seed, device)
     out = torch.zeros((args.batch, args.gen), dtype=torch.int32, device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+        logits, cache = model.prefill(params, batch, cache_len=cache_len)
         toks = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out[:, 0] = toks[:, 0].int()
         sync()
@@ -135,6 +140,31 @@ def _run_static(args, cfg, model, params, device, tap):
           f"decode={t_decode / max(args.gen - 1, 1) * 1e3:.2f}ms/tok")
     print("generated token ids (first row):", out[0].tolist())
     return out
+
+
+def static_batch(cfg, batch: int, prompt_len: int, gen: int, seed: int, device):
+    """The static engine's prefill batch and cache length: random prompts
+    (batch, prompt_len); a VLM config's 8 patch embeddings per row, which
+    the cache holds too; an ENCDEC config's (batch, prompt_len, d) source
+    frames. Drawn on ``device`` from ``seed + 1``."""
+    import torch
+
+    from repro_torch.models import Family
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    dtype = getattr(torch, cfg.compute_dtype)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                                   device=device)}
+    cache_len = prompt_len + gen
+    if cfg.family is Family.VLM:
+        out["patch_embeds"] = torch.randn((batch, 8, cfg.d_model), generator=g,
+                                          device=device).to(dtype)
+        cache_len += 8
+    if cfg.family is Family.ENCDEC:
+        out["frames"] = torch.randn((batch, prompt_len, cfg.d_model), generator=g,
+                                    device=device).to(dtype)
+    return out, cache_len
 
 
 def _run_continuous(args, cfg, model, params, device, tap):

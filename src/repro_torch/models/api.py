@@ -1,5 +1,5 @@
-"""Uniform model interface (port of ``repro/models/api.py``), for the
-DENSE, MOE and SSM (rwkv6) families.
+"""Uniform model interface over every architecture family (port of
+``repro/models/api.py``).
 
 ``build_model(cfg)`` returns a ``Model`` whose methods close over the
 config and dispatch on its family, as the JAX package's do:
@@ -8,14 +8,15 @@ config and dispatch on its family, as the JAX package's do:
     model.loss(params, batch)                  -> scalar CE loss
     model.prefill(params, batch, cache_len)    -> (logits, cache)
     model.decode_step(params, cache, tokens)   -> (logits, cache)
-    model.init_cache(batch, max_len, device)   -> cache
+    model.init_cache(batch, max_len, src_len=0, device=None) -> cache
     model.param_count() / active_param_count() / flops_per_token()
 
-Other families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them (item 10(b2)).
+``batch`` keys by family (an optional ``loss_mask`` (B, S) beside them):
 
-``batch`` holds ``tokens`` (B, S+1): inputs and next-token targets are
-derived here, and an optional ``loss_mask`` (B, S).
+    dense / moe / hybrid / ssm: tokens (B, S+1), inputs and next-token
+                                targets derived here
+    vlm:    tokens (B, S_text+1), patch_embeds (B, S_img, d)
+    encdec: frames (B, S_src, d), tokens (B, S_tgt+1)
 """
 from __future__ import annotations
 
@@ -23,21 +24,18 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import encdec, rwkv6, transformer
 from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.params import count
 from repro_torch.models.transformer import Runtime
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """The families the port builds: DENSE, MOE and SSM."""
-    if cfg.family is not Family.SSM:
-        transformer.check_trunk(cfg)
-
-
 def _mod(cfg: ModelConfig):
-    check_family(cfg)
-    return rwkv6 if cfg.family is Family.SSM else transformer
+    if cfg.family is Family.SSM:
+        return rwkv6
+    if cfg.family is Family.ENCDEC:
+        return encdec
+    return transformer
 
 
 def decls(cfg: ModelConfig):
@@ -74,24 +72,35 @@ class Model:
 
     def _split_train_batch(self, batch):
         toks = batch["tokens"]
-        return dict(tokens=toks[:, :-1], targets=toks[:, 1:],
-                    loss_mask=batch.get("loss_mask"))
+        kw = dict(tokens=toks[:, :-1], targets=toks[:, 1:],  # VLM: text positions only
+                  loss_mask=batch.get("loss_mask"))
+        if self.cfg.family is Family.ENCDEC:
+            kw["frames"] = batch["frames"]
+        elif self.cfg.family is Family.VLM:
+            kw["embeds"] = batch["patch_embeds"]
+        return kw
 
     def loss(self, params, batch, runtime: Runtime = Runtime()):
         kw = self._split_train_batch(batch)
         return _mod(self.cfg).lm_loss(params, self.cfg, runtime=runtime, **kw)
 
-    def init_cache(self, batch_size: int, max_len: int, device=None):
+    def init_cache(self, batch_size: int, max_len: int, src_len: int = 0, device=None):
+        if self.cfg.family is Family.ENCDEC:
+            return encdec.init_cache(self.cfg, batch_size, max_len, src_len, device=device)
         return _mod(self.cfg).init_cache(self.cfg, batch_size, max_len, device=device)
 
     def prefill(self, params, batch, cache_len: int, runtime: Runtime = Runtime()):
+        kw = {}
+        if self.cfg.family is Family.ENCDEC:
+            kw["frames"] = batch["frames"]
+        elif self.cfg.family is Family.VLM:
+            kw["embeds"] = batch["patch_embeds"]
         return _mod(self.cfg).prefill(params, self.cfg, tokens=batch["tokens"],
-                                      cache_len=cache_len, runtime=runtime)
+                                      cache_len=cache_len, runtime=runtime, **kw)
 
     def decode_step(self, params, cache, tokens, runtime: Runtime = Runtime()):
         return _mod(self.cfg).decode_step(params, self.cfg, cache, tokens, runtime)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    check_family(cfg)
     return Model(cfg)

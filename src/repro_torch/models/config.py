@@ -1,10 +1,10 @@
 """Model configuration (port of ``repro/models/config.py``).
 
-One dataclass describes every LM-family member of the JAX package. The
-port keeps the whole description, so a configuration reads the same in
-both packages, but builds only the DENSE, MOE and SSM (rwkv6) families
-for now: the others raise where a model is built
-(``models.api.build_model``), naming the ROADMAP item that ports them.
+One dataclass describes every LM-family member of the JAX package:
+dense GQA transformers, MoE, mixed local/global attention, hybrid
+attention + SSM (hymba), attention-free RWKV6, encoder-decoder (the
+seamless backbone) and the embedding-frontend VLM stub. The port builds
+every family.
 """
 from __future__ import annotations
 
@@ -114,6 +114,15 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(self.d_model // 16, 1)
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width (hybrid family)."""
+        return self.d_model
+
     def layer_windows(self) -> tuple[int, ...]:
         """Resolved per-layer window sizes, GLOBAL -> -1 sentinel kept."""
         pat = self.window_pattern
@@ -147,3 +156,44 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+    def param_count(self) -> int:
+        """Closed-form parameter count, as the JAX package's roofline takes
+        it: over the true vocab, and without hymba's ``ssm_norm``, so below
+        ``Model.param_count()`` (the declarations' count) for configs whose
+        vocab is padded or that have an SSM branch."""
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    emb = v * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.family is Family.SSM:  # RWKV6
+        # time-mix: r/k/v/g/o (5 d*d) + decay lora (d*64*2) + maa lora
+        # (d*32*5 + 5*32*d) + u (d) + ln params; channel-mix: k (d*ff),
+        # v (ff*d), r (d*d).
+        tm = 5 * d * d + 2 * 64 * d + 5 * 32 * d * 2 + d + 2 * d + 2 * d
+        cm = d * ff + ff * d + d * d
+        return cfg.num_layers * (tm + cm + 2 * d) + emb + d
+
+    attn = d * cfg.attn_dim + 2 * d * cfg.kv_dim + cfg.attn_dim * d
+    if cfg.qkv_bias:
+        attn += cfg.attn_dim + 2 * cfg.kv_dim
+    if cfg.num_experts:
+        ffn_total = cfg.num_experts * 3 * d * ff + d * cfg.num_experts
+        ffn_active = cfg.experts_per_token * 3 * d * ff + d * cfg.num_experts
+    else:
+        ffn_total = ffn_active = 3 * d * ff
+    per_layer = attn + (ffn_active if active_only else ffn_total) + 2 * d  # + norms
+    if cfg.family is Family.HYBRID:
+        # SSM branch: in_proj (d -> 2*d_inner), conv, dt/B/C proj, A, D, out.
+        di, st, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+        per_layer += (d * 2 * di + di * cfg.ssm_conv + di * (dtr + 2 * st) + dtr * di
+                      + di * st + 2 * di + di * d)
+    extra = 0
+    if cfg.family is Family.ENCDEC:  # decoder layers add cross-attention
+        extra = cfg.num_layers * (d * cfg.attn_dim + 2 * d * cfg.kv_dim + cfg.attn_dim * d + d)
+    return (cfg.num_layers + cfg.num_encoder_layers) * per_layer + extra + emb + d

@@ -1,7 +1,11 @@
-"""Decoder-only LM trunk, DENSE and MOE families (port of
+"""Decoder-only LM trunk, DENSE, MOE, HYBRID and VLM families (port of
 ``repro/models/transformer.py``). A config with ``num_experts`` swaps the
 dense gated MLP for the MoE FFN of ``models/moe.py``, chosen by
-``Runtime.moe_impl`` (default ``"dropless"``, the served route).
+``Runtime.moe_impl`` (default ``"dropless"``, the served route). HYBRID
+(hymba) runs a Mamba-style SSM branch beside attention in every layer
+and averages the two (``_ssm_branch``, through ``ssm.selective_scan``);
+VLM (internvl2) prepends its patch embeddings to the embedded tokens
+(``embed_inputs``).
 
 Parameters keep the JAX package's stacked layout (a leading
 ``num_layers`` dim, ``wq`` as (L, d, H, hd), ``wo`` as (L, H, hd, d)), so
@@ -12,9 +16,10 @@ as an int.
 
 Serving: :func:`prefill` returns the last position's logits and a
 contiguous KV cache; :func:`decode_step` advances it one token. The
-cache is a dict ``{"k", "v": (L, B, S, Hkv, hd), "pos": int}`` that
-``decode_step`` updates IN PLACE (its caller owns it, as the JAX
-package's callers donate it) and returns.
+cache is a dict ``{"k", "v": (L, B, S, Hkv, hd), "pos": int}`` (HYBRID
+adds float32 ``ssm_state`` (L, B, d_inner, ssm_state) and ``conv_state``
+(L, B, ssm_conv - 1, d_inner)) that ``decode_step`` updates IN PLACE (its
+caller owns it, as the JAX package's callers donate it) and returns.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import GLOBAL, Family, ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -53,12 +59,12 @@ class Runtime:
 
 
 def check_trunk(cfg: ModelConfig) -> None:
-    """The trunk families the port builds: DENSE and MOE."""
-    if cfg.family not in (Family.DENSE, Family.MOE):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family.value} is not ported yet: "
-            "ROADMAP.md queue 1, item 10(b2) (the HYBRID, VLM and ENCDEC "
-            "families) ports it"
+    """The families this trunk builds: DENSE, MOE, HYBRID and VLM (SSM is
+    ``models/rwkv6``, ENCDEC ``models/encdec``)."""
+    if cfg.family not in (Family.DENSE, Family.MOE, Family.HYBRID, Family.VLM):
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family.value} is not a decoder-only "
+            "transformer trunk"
         )
 
 
@@ -97,6 +103,19 @@ def param_decls(cfg: ModelConfig):
     if cfg.qk_norm:
         layers["q_norm"] = ParamDecl((L, hd), ("layers", "head_dim"), "zeros", pd)
         layers["k_norm"] = ParamDecl((L, hd), ("layers", "head_dim"), "zeros", pd)
+    if cfg.family is Family.HYBRID:
+        di, st, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+        layers.update(
+            ssm_norm=ParamDecl((L, d), ("layers", "embed"), "zeros", pd),
+            ssm_in=ParamDecl((L, d, 2 * di), ("layers", "embed", "ssm"), "normal", pd),
+            ssm_conv=ParamDecl((L, di, cfg.ssm_conv), ("layers", "ssm", None), "normal", pd),
+            ssm_xproj=ParamDecl((L, di, dtr + 2 * st), ("layers", "ssm", None), "normal", pd),
+            ssm_dtproj=ParamDecl((L, dtr, di), ("layers", None, "ssm"), "normal", pd),
+            ssm_a_log=ParamDecl((L, di, st), ("layers", "ssm", None), "zeros", "float32"),
+            ssm_d=ParamDecl((L, di), ("layers", "ssm"), "ones", "float32"),
+            ssm_dt_bias=ParamDecl((L, di), ("layers", "ssm"), "zeros", "float32"),
+            ssm_out=ParamDecl((L, di, d), ("layers", "ssm", "embed"), "normal_out", pd),
+        )
     decls = {
         "embed": ParamDecl((V, d), ("vocab", "embed"), "normal", pd),
         "layers": layers,
@@ -194,6 +213,61 @@ def _ffn_block(lp, cfg: ModelConfig, x: Array, runtime: Runtime = Runtime()):
     return moe_mod.moe_ffn_reference(*args)
 
 
+def _ssm_branch(lp, cfg: ModelConfig, x: Array, state=None, conv_state=None):
+    """Mamba-style branch of the hybrid family (full-sequence form) on
+    pre-normed x (B, S, d). Returns (out (B, S, d), final SSM state
+    (B, d_inner, ssm_state) f32, final conv window (B, ssm_conv - 1,
+    d_inner) f32: the last inputs of the causal depthwise conv)."""
+    s, st, dtr = x.shape[1], cfg.ssm_state, cfg.dt_rank
+    xs, z = torch.chunk(x @ lp["ssm_in"], 2, dim=-1)  # (B, S, d_inner) each
+    # causal depthwise conv along time, over a zero (or given) history
+    w = lp["ssm_conv"].float()  # (di, conv)
+    pad = cfg.ssm_conv - 1
+    xpad = torch.nn.functional.pad(xs.float(), (0, 0, pad, 0))
+    if conv_state is not None:
+        xpad[:, :conv_state.shape[1]] = conv_state
+    xc = sum(xpad[:, i:i + s] * w[:, i] for i in range(cfg.ssm_conv))
+    xc = torch.nn.functional.silu(xc).to(x.dtype)
+    final_conv = xpad[:, s:s + pad]
+    dt_r, b_in, c_in = torch.split(xc @ lp["ssm_xproj"], [dtr, st, st], dim=-1)
+    dt = torch.nn.functional.softplus(dt_r @ lp["ssm_dtproj"] + lp["ssm_dt_bias"])
+    y, s_final = ssm_mod.selective_scan(xc, dt, lp["ssm_a_log"], b_in, c_in, lp["ssm_d"],
+                                        initial_state=state)
+    y = y * torch.nn.functional.silu(z)
+    return y @ lp["ssm_out"], s_final, final_conv
+
+
+def _ssm_decode_step(lp, cfg: ModelConfig, x: Array, ssm_state: Array, conv_state: Array):
+    """One-token hybrid SSM branch on pre-normed x (B, 1, d), from the
+    slot's ``ssm_state`` (B, di, st) and ``conv_state`` (B, conv - 1, di).
+    Returns (out (B, 1, d), new ssm_state, new conv_state), both f32."""
+    st, dtr = cfg.ssm_state, cfg.dt_rank
+    xs, z = torch.chunk(x[:, 0] @ lp["ssm_in"], 2, dim=-1)  # (B, di) each
+    # roll the conv window: conv_state holds the previous inputs
+    hist = torch.cat([conv_state.float(), xs.float()[:, None, :]], dim=1)  # (B, conv, di)
+    xc = torch.einsum("bci,ic->bi", hist, lp["ssm_conv"].float())
+    xc = torch.nn.functional.silu(xc).to(x.dtype)
+    dt_r, b_in, c_in = torch.split(xc @ lp["ssm_xproj"], [dtr, st, st], dim=-1)
+    dt = torch.nn.functional.softplus(dt_r @ lp["ssm_dtproj"] + lp["ssm_dt_bias"])
+    y, s_new = ssm_mod.selective_scan_step(xc, dt, lp["ssm_a_log"], b_in, c_in,
+                                           lp["ssm_d"], ssm_state)
+    y = y * torch.nn.functional.silu(z)
+    return (y @ lp["ssm_out"])[:, None], s_new, hist[:, 1:]
+
+
+def _hybrid_layer(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
+                  theta: float, runtime: Runtime):
+    """One hybrid block: attention and the SSM branch on the same input,
+    averaged. Returns (x', (k, v), ssm_state, conv_state)."""
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    a, kv = _attn_block(lp, cfg, h, positions, window, theta)
+    hs = rms_norm(x, lp["ssm_norm"], cfg.rms_eps)
+    ssm_out, s_state, c_state = _ssm_branch(lp, cfg, hs)
+    x = x + 0.5 * (a + ssm_out)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    return x + _ffn_block(lp, cfg, h, runtime), kv, s_state, c_state
+
+
 def _layer_fwd(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
                theta: float, runtime: Runtime = Runtime()):
     """One transformer block (prefill form). Returns (x', (k, v))."""
@@ -208,7 +282,9 @@ def _layer_fwd(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
 # Forward
 # --------------------------------------------------------------------- #
 def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None):
-    """Token ids and/or precomputed frontend embeddings -> (B, S, d)."""
+    """Token ids and/or precomputed frontend embeddings -> (B, S, d). The
+    VLM stub's ``embeds`` (patch embeddings) are prepended to the embedded
+    tokens."""
     parts = []
     if embeds is not None:
         parts.append(embeds.to(getattr(torch, cfg.compute_dtype)))
@@ -220,22 +296,35 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None):
     return x
 
 
+def _trunk(params, cfg: ModelConfig, tokens, embeds, runtime: Runtime, keep: bool):
+    """Embed and run every layer. Returns (normed hidden (B, S, d), the
+    layers' (k, v) and, for HYBRID, their final (ssm_state, conv_state):
+    lists, empty unless ``keep``)."""
+    check_trunk(cfg)
+    x = embed_inputs(params, cfg, tokens, embeds)
+    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    kvs, states = [], []
+    for i, lp in enumerate(unstacked_layers(params)):
+        w_i, th_i = static_layer_meta(cfg, i)
+        if cfg.family is Family.HYBRID:
+            x, kv, ss, cs = _hybrid_layer(lp, cfg, x, positions, w_i, th_i, runtime)
+            if keep:
+                states.append((ss, cs))
+        else:
+            x, kv = _layer_fwd(lp, cfg, x, positions, w_i, th_i, runtime)
+        if keep:
+            kvs.append(kv)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps), kvs, states
+
+
 def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                    runtime=Runtime(), return_kv: bool = False):
     """Full-sequence forward. Returns hidden (B,S,d) [, stacked (k, v) of
     shape (L, B, S, Hkv, hd) each]."""
-    check_trunk(cfg)
-    x = embed_inputs(params, cfg, tokens, embeds)
-    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
-    ks, vs = [], []
-    for i, lp in enumerate(unstacked_layers(params)):
-        w_i, th_i = static_layer_meta(cfg, i)
-        x, (k, v) = _layer_fwd(lp, cfg, x, positions, w_i, th_i, runtime)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return (x, (torch.stack(ks), torch.stack(vs))) if return_kv else x
+    x, kvs, _ = _trunk(params, cfg, tokens, embeds, runtime, return_kv)
+    if not return_kv:
+        return x
+    return x, tuple(torch.stack(t) for t in zip(*kvs))
 
 
 def _head_logits(params, cfg: ModelConfig, h: Array) -> Array:
@@ -309,31 +398,46 @@ def _chunked_ce(params, cfg: ModelConfig, h: Array, targets: Array, loss_mask):
 # --------------------------------------------------------------------- #
 # Serving: prefill + single-token decode
 # --------------------------------------------------------------------- #
+def ssm_states(cfg: ModelConfig, batch: int, device) -> dict[str, Array]:
+    """A HYBRID config's zeroed float32 ``ssm_state`` (L, batch, d_inner,
+    ssm_state) and ``conv_state`` (L, batch, ssm_conv - 1, d_inner)."""
+    L, di = cfg.num_layers, cfg.d_inner
+    f = dict(dtype=torch.float32, device=device)
+    return {"ssm_state": torch.zeros((L, batch, di, cfg.ssm_state), **f),
+            "conv_state": torch.zeros((L, batch, cfg.ssm_conv - 1, di), **f)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
     """A zeroed cache on the CUDA card unless ``device`` names another."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": 0,
     }
+    if cfg.family is Family.HYBRID:
+        cache.update(ssm_states(cfg, batch, device))
+    return cache
 
 
 def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache_len: int,
             runtime=Runtime()):
     """Run the full prompt: (last-position logits (B,1,V) f32, cache with
-    the prompt's KV in rows [0, S) and zeros up to ``cache_len``)."""
-    h, (k, v) = forward_hidden(params, cfg, tokens=tokens, embeds=embeds,
-                               runtime=runtime, return_kv=True)
+    the prompt's KV in rows [0, S) and zeros up to ``cache_len``; HYBRID's
+    with every layer's final SSM and conv states)."""
+    h, kvs, states = _trunk(params, cfg, tokens, embeds, runtime, True)
+    k, v = (torch.stack(t) for t in zip(*kvs))
     s = k.shape[2]
     pad = cache_len - s
     if pad > 0:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    logits = _head_logits(params, cfg, h[:, -1:])
-    return logits, {"k": k, "v": v, "pos": s}
+    cache = {"k": k, "v": v, "pos": s}
+    if states:
+        cache["ssm_state"], cache["conv_state"] = (torch.stack(t) for t in zip(*states))
+    return _head_logits(params, cfg, h[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, runtime=Runtime()):
@@ -355,9 +459,24 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, runtime=Runtime()):
         k_all[i, :, pos] = k[:, 0]
         v_all[i, :, pos] = v[:, 0]
         out = attention_decode(q, k_all[i], v_all[i], q_pos, w_i)
-        x = x + attn_out(lp, out)
+        a = attn_out(lp, out)
+        if cfg.family is Family.HYBRID:
+            a = 0.5 * (a + hybrid_decode(lp, cfg, x, cache, i))
+        x = x + a
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + _ffn_block(lp, cfg, h, runtime)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     cache["pos"] = pos + 1
     return _head_logits(params, cfg, x), cache
+
+
+def hybrid_decode(lp, cfg: ModelConfig, x: Array, states, i: int) -> Array:
+    """Layer i's SSM branch for one token of x (B, 1, d), un-normed: reads
+    and writes ``states["ssm_state"][i]`` and ``states["conv_state"][i]``
+    in place. Returns the branch's output (B, 1, d)."""
+    hs = rms_norm(x, lp["ssm_norm"], cfg.rms_eps)
+    out, ss, cs = _ssm_decode_step(lp, cfg, hs, states["ssm_state"][i],
+                                   states["conv_state"][i])
+    states["ssm_state"][i] = ss
+    states["conv_state"][i] = cs
+    return out

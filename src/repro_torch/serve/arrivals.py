@@ -10,7 +10,9 @@ Each request gets a prompt, a generation length and an SLO deadline, and
 is pushed into a ``sim.events`` queue as a ``KIND_ARRIVE`` event whose
 payload is the request id. The draws go through a draw provider
 (``repro_torch.random``) under the sites ``serve.arrival`` (uniforms of
-the inter-arrival gaps), ``serve.gen_len`` and ``serve.prompts``; the
+the inter-arrival gaps), ``serve.gen_len``, ``serve.prompts`` and, for a
+VLM model, ``serve.patches`` (its patch embeddings, rounded to the
+model's compute dtype); the
 JAX package draws them from a key, so the two traces differ for one
 seed. :func:`trace_from_arrays` builds a trace from given arrays, which
 is how a test serves the JAX package's own trace.
@@ -46,7 +48,7 @@ class RequestTrace:
     gen_len: np.ndarray  # (R,) i64 in [min_gen, max_gen]
     slo_ms: float
     prompts: np.ndarray  # (R, prompt_len) i32
-    patch_embeds: np.ndarray | None  # VLM frontend embeddings (not ported)
+    patch_embeds: np.ndarray | None  # (R, n_patches, d) f32 for VLM archs
     queue: EventQueue  # KIND_ARRIVE events on the CPU, payload = request id
 
     @property
@@ -71,9 +73,11 @@ def _arrival_times(u: np.ndarray, cfg: TraceConfig) -> np.ndarray:
     return out
 
 
-def trace_from_arrays(arrival_ms, gen_len, prompts, slo_ms: float) -> RequestTrace:
+def trace_from_arrays(arrival_ms, gen_len, prompts, slo_ms: float,
+                      patch_embeds=None) -> RequestTrace:
     """A trace from host arrays: arrival times (R,), generation lengths
-    (R,) and prompts (R, prompt_len); its queue holds one KIND_ARRIVE
+    (R,), prompts (R, prompt_len) and, for a VLM model, patch embeddings
+    (R, n_patches, d) (held as float32); its queue holds one KIND_ARRIVE
     event per request."""
     arrival = np.asarray(arrival_ms, np.float64)
     r = arrival.shape[0]
@@ -90,18 +94,23 @@ def trace_from_arrays(arrival_ms, gen_len, prompts, slo_ms: float) -> RequestTra
         gen_len=np.asarray(gen_len, np.int64),
         slo_ms=float(slo_ms),
         prompts=np.array(prompts, np.int32),  # a writable copy
-        patch_embeds=None,
+        patch_embeds=None if patch_embeds is None else np.array(patch_embeds, np.float32),
         queue=q,
     )
 
 
-def make_trace(draws, cfg: TraceConfig, model_cfg=None) -> RequestTrace:
+def make_trace(draws, cfg: TraceConfig, model_cfg=None, n_patches: int = 8) -> RequestTrace:
     """Sample a reproducible request trace for ``model_cfg`` (or a generic
-    256-vocab one) from the draw provider ``draws``."""
+    256-vocab one) from the draw provider ``draws``; a VLM model's trace
+    carries ``n_patches`` patch embeddings per request."""
     r = cfg.n_requests
     u = draws.uniform("serve.arrival", (r,), 0.0, 1.0).double().cpu().numpy()
     gen = cfg.min_gen + draws.randint("serve.gen_len", (r,), cfg.max_gen - cfg.min_gen + 1)
     vocab = int(model_cfg.vocab_size) if model_cfg is not None else 256
     prompts = draws.randint("serve.prompts", (r, cfg.prompt_len), vocab)
+    patch_embeds = None
+    if model_cfg is not None and model_cfg.family.name == "VLM":
+        patch_embeds = draws.normal("serve.patches", (r, n_patches, model_cfg.d_model)).to(
+            getattr(torch, model_cfg.compute_dtype)).float().cpu().numpy()
     return trace_from_arrays(_arrival_times(u, cfg), gen.cpu().numpy(),
-                             prompts.cpu().numpy(), cfg.slo_ms)
+                             prompts.cpu().numpy(), cfg.slo_ms, patch_embeds)

@@ -54,7 +54,7 @@ class EngineConfig:
     attn: str = "dense"  # "dense" (oracle-exact) | "paged" (K7)
     policy: str = "fifo"  # waiting-queue order: "fifo" | "edf"
     max_queue: int = 0  # admission cap (0 = unbounded); over -> rejected
-    n_patches: int = 8  # VLM frontend tokens per request (VLM not ported)
+    n_patches: int = 8  # VLM frontend tokens per request
 
 
 @dataclasses.dataclass
@@ -84,6 +84,16 @@ class ServeReport:
 
     def tokens_for(self, req: int) -> list[int]:
         return self.tokens[req, : int(self.gen_len[req])].tolist()
+
+
+def trace_embeds(trace: RequestTrace, plan: PagePlan, device):
+    """The trace's VLM patch embeddings (R, n_patches, d) on ``device``,
+    copied once before the loop; None when the plan prepends no patches."""
+    if not plan.n_patches:
+        return None
+    if trace.patch_embeds is None or trace.patch_embeds.shape[1] != plan.n_patches:
+        raise ValueError(f"a VLM trace needs patch_embeds of {plan.n_patches} patches")
+    return torch.from_numpy(np.ascontiguousarray(trace.patch_embeds)).to(device)
 
 
 def summarize(trace: RequestTrace, latency: np.ndarray, vclock: float, wall: float,
@@ -164,6 +174,7 @@ class ContinuousBatchingEngine:
         out_buf = torch.zeros((cfg.max_requests + 1, cfg.max_gen), dtype=torch.int32,
                               device=dev)
         prompts = torch.from_numpy(np.ascontiguousarray(trace.prompts)).to(dev)
+        embeds = trace_embeds(trace, plan, dev)
 
         n_tab = plan.pages_per_slot
         page_table = np.zeros((cfg.slots, n_tab), np.int64)
@@ -220,9 +231,11 @@ class ContinuousBatchingEngine:
                 row = np.zeros((n_tab,), np.int64)
                 row[: len(pages)] = pages
                 prompt_pages = torch.from_numpy(row[: plan.prompt_pages]).to(dev)
+                admit_args = [prompts[req:req + 1]]
+                if embeds is not None:
+                    admit_args.append(embeds[req:req + 1])
                 pool, tokens, out_buf = self._admit(
-                    self.params, pool, tokens, out_buf, prompts[req:req + 1],
-                    prompt_pages, slot, req,
+                    self.params, pool, tokens, out_buf, *admit_args, prompt_pages, slot, req,
                 )
                 vclock += cost.prefill_ms(prompt_flops, warm)
                 energy += cost.prefill_energy_j(prompt_flops, warm)

@@ -20,7 +20,7 @@ from repro_torch.models.api import Model
 from repro_torch.models.transformer import Runtime
 from repro_torch.serve.arrivals import RequestTrace
 from repro_torch.serve.costs import ServeCostModel
-from repro_torch.serve.engine import EngineConfig, ServeReport, summarize
+from repro_torch.serve.engine import EngineConfig, ServeReport, summarize, trace_embeds
 from repro_torch.serve.paged import PagePlan, check_family
 
 
@@ -49,6 +49,7 @@ class SequentialOracle:
         out_buf = torch.zeros((cfg.max_requests + 1, cfg.max_gen), dtype=torch.int32,
                               device=dev)
         prompts = torch.from_numpy(np.ascontiguousarray(trace.prompts)).to(dev)
+        embeds = trace_embeds(trace, plan, dev)
         vclock = 0.0
         last_busy = -math.inf
         latency = np.full((r,), np.nan)
@@ -63,8 +64,11 @@ class SequentialOracle:
             arrival = float(trace.arrival_ms[req])
             start = max(vclock, arrival)
             warm = (start - last_busy) <= cost.keep_alive_ms
-            logits, cache = model.prefill(self.params, {"tokens": prompts[req:req + 1]},
-                                          cache_len=plan.cache_len, runtime=self.runtime)
+            batch = {"tokens": prompts[req:req + 1]}
+            if embeds is not None:
+                batch["patch_embeds"] = embeds[req:req + 1]
+            logits, cache = model.prefill(self.params, batch, cache_len=plan.cache_len,
+                                          runtime=self.runtime)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]  # (1, 1)
             out_buf[req, 0] = tok[0, 0].to(out_buf.dtype)
             vclock = start + cost.prefill_ms(prompt_flops, warm)

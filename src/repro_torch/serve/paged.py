@@ -20,13 +20,18 @@ Attention modes:
   * ``paged`` — K7, the hand-written paged decode kernel (its plain
     version on the CPU): no gathered cache is made.
 
-Families: DENSE and MOE route through the paged KV pool (MOE's FFN is
-``models/moe.py``'s, reached through ``transformer._ffn_block``); SSM
-(rwkv6) keeps an O(1) recurrent state per slot, so its "pool" is the slot-indexed state
+Families: DENSE, MOE, VLM and HYBRID route through the paged KV pool
+(MOE's FFN is ``models/moe.py``'s, reached through
+``transformer._ffn_block``; VLM prepends each request's patch embeddings
+at admission, so its prompt fills ``prompt_len + n_patches`` positions;
+HYBRID adds slot-indexed SSM and conv states, written by the admission's
+prefill and advanced by every decode step). SSM (rwkv6) keeps an O(1)
+recurrent state per slot, so its "pool" is the slot-indexed state
 (``wkv`` / ``tm_x`` / ``cm_x``), its admission prefills through K6 and
 writes the final state into the slot, its decode step runs
 ``rwkv6.decode_step`` over every slot, and the attention modes and page
-ids are not read. Other families raise (:func:`check_family`).
+ids are not read. ENCDEC raises (:func:`check_family`), as in the JAX
+package.
 
 The pool, the next tokens and the output buffer belong to the engine that
 made them, so both programs write them IN PLACE (``index_put_``; the
@@ -43,24 +48,22 @@ from repro_torch.kernels.paged_attention import gather_pages, paged_attention
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tf
 from repro_torch.models.api import Model
-from repro_torch.models.api import check_family as check_built
 from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.layers import attention_decode, rms_norm
 from repro_torch.models.transformer import Runtime, static_layer_meta
 
 ATTN_MODES = ("dense", "paged")
 _SSM_STATE = ("wkv", "tm_x", "cm_x")
+_HYBRID_STATE = ("ssm_state", "conv_state")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Continuous batching serves the families the port builds: DENSE, MOE
-    and SSM."""
+    """Continuous batching serves every family but ENCDEC."""
     if cfg.family is Family.ENCDEC:
         raise NotImplementedError(
             "continuous batching does not cover ENCDEC: the cross-attention "
             "source cache is per-request ragged in a second axis"
         )
-    check_built(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +104,9 @@ class PagePlan:
     @classmethod
     def build(cls, cfg: ModelConfig, prompt_len: int, max_gen: int,
               page_size: int = 16, n_patches: int = 8) -> "PagePlan":
-        del n_patches  # VLM frontends are not ported; no patches prepended
         check_family(cfg)
-        return cls(page_size=page_size, prompt_len=prompt_len, n_patches=0,
+        return cls(page_size=page_size, prompt_len=prompt_len,
+                   n_patches=n_patches if cfg.family is Family.VLM else 0,
                    max_gen=max_gen)
 
 
@@ -111,9 +114,10 @@ def init_pool(cfg: ModelConfig, plan: PagePlan, slots: int, num_pages: int,
               dtype=None, device=None):
     """Zeroed device state on the CUDA card unless ``device`` names
     another. DENSE: k/v pools (L, num_pages + 1, page, Hkv, hd), physical
-    page 0 the trash page. SSM: the slot-indexed recurrent state of
-    ``rwkv6.init_cache`` without ``pos`` (per-slot positions are host
-    state in serving)."""
+    page 0 the trash page; HYBRID adds the slot-indexed float32
+    ``ssm_state`` and ``conv_state`` (``transformer.ssm_states``). SSM: the
+    slot-indexed recurrent state of ``rwkv6.init_cache`` without ``pos``
+    (per-slot positions are host state in serving)."""
     check_family(cfg)
     device = resolve_device(device)
     if cfg.family is Family.SSM:
@@ -123,20 +127,25 @@ def init_pool(cfg: ModelConfig, plan: PagePlan, slots: int, num_pages: int,
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     shape = (cfg.num_layers, num_pages + 1, plan.page_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family is Family.HYBRID:
+        pool.update(tf.ssm_states(cfg, slots, device))
+    return pool
 
 
 def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
-    """Returns ``admit(params, pool, tokens, out_buf, prompt, pages, slot,
-    req) -> (pool, tokens, out_buf)``, writing its three state arguments
-    in place. ``prompt`` is (1, prompt_len) on the device, ``pages`` the
-    (prompt_pages,) physical page ids on the device (not read for SSM),
-    ``slot``/``req`` ints. SSM writes the prefill's final state into the
-    slot's rows of the state."""
+    """Returns ``admit(params, pool, tokens, out_buf, prompt, [embeds,]
+    pages, slot, req) -> (pool, tokens, out_buf)``, writing its three
+    state arguments in place. ``prompt`` is (1, prompt_len) on the device,
+    ``pages`` the (prompt_pages,) physical page ids on the device (not
+    read for SSM), ``slot``/``req`` ints; VLM models take the extra
+    ``embeds`` (1, n_patches, d) on the device. SSM and HYBRID write the
+    prefill's final states into the slot's rows."""
     cfg = model.cfg
     check_family(cfg)
     ssm = cfg.family is Family.SSM
+    is_vlm = cfg.family is Family.VLM
     # Prefill fills whole pages; the padding past the prompt is zeros,
     # overwritten once decode reaches it.
     prefill_len = plan.prompt_pages * plan.page_size
@@ -144,9 +153,14 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
                               cfg.num_kv_heads, cfg.head_dim)
 
     @torch.no_grad()
-    def admit(params, pool, tokens, out_buf, prompt, pages, slot: int, req: int):
-        logits, cache = model.prefill(params, {"tokens": prompt}, cache_len=prefill_len,
-                                      runtime=runtime)
+    def admit(params, pool, tokens, out_buf, prompt, *rest):
+        if is_vlm:
+            embeds, pages, slot, req = rest
+            batch = {"tokens": prompt, "patch_embeds": embeds}
+        else:
+            pages, slot, req = rest
+            batch = {"tokens": prompt}
+        logits, cache = model.prefill(params, batch, cache_len=prefill_len, runtime=runtime)
         first = torch.argmax(logits[0, -1], dim=-1)
         if ssm:
             for key in _SSM_STATE:
@@ -154,6 +168,9 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
         else:
             pool["k"][:, pages] = cache["k"][:, 0].reshape(shape)
             pool["v"][:, pages] = cache["v"][:, 0].reshape(shape)
+            if cfg.family is Family.HYBRID:
+                for key in _HYBRID_STATE:
+                    pool[key][:, slot] = cache[key][:, 0]
         tokens[slot, 0] = first
         out_buf[req, 0] = first.to(out_buf.dtype)
         return pool, tokens, out_buf
@@ -167,9 +184,10 @@ def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, toke
                             attn: str, dense_attention=attention_decode):
     """Slot-batched analogue of ``transformer.decode_step``: per-slot
     ``positions`` (S,) and the page pool instead of a contiguous cache.
-    Writes the new KV into ``pool`` in place; returns (logits (S,1,V),
-    pool). ``dense_attention`` is the dense mode's attention over the
-    gathered cache (``attention_decode``'s arguments)."""
+    Writes the new KV (and HYBRID's SSM and conv states, every slot's)
+    into ``pool`` in place; returns (logits (S,1,V), pool).
+    ``dense_attention`` is the dense mode's attention over the gathered
+    cache (``attention_decode``'s arguments)."""
     s = tokens.shape[0]
     page = plan.page_size
     x = tf.embed_inputs(params, cfg, tokens=tokens)  # (S, 1, d)
@@ -194,7 +212,10 @@ def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, toke
             kg = gather_pages(k_pool[i], page_table)  # (S, cache_len, Hkv, hd)
             vg = gather_pages(v_pool[i], page_table)
             out = dense_attention(q, kg, vg, positions, w_i)
-        x = x + tf.attn_out(lp, out)
+        a = tf.attn_out(lp, out)
+        if cfg.family is Family.HYBRID:
+            a = 0.5 * (a + tf.hybrid_decode(lp, cfg, x, pool, i))
+        x = x + a
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
         x = x + tf._ffn_block(lp, cfg, h, runtime)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)

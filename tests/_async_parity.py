@@ -20,9 +20,9 @@ packages, runs ``run()`` on each and holds the histories to
 import warnings
 
 import numpy as np
-import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (re-exported: autouse in importers)
 
 from repro.fl.simulator import SimulatorConfig as JaxConfig
 from repro.sim.events import AsyncConfig as JaxAsyncConfig
@@ -32,17 +32,6 @@ from repro.sim.faults import FaultConfig as JaxFaults
 from repro_torch.fl.simulator import SimulatorConfig
 from repro_torch.sim.events import AsyncConfig, AsyncFedFogSimulator, ChurnConfig
 from repro_torch.sim.faults import FaultConfig
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module's small CPU tensors, the count
-    restored after: the suite runs several workers on one CPU, and many
-    tiny ops on a full thread pool each spin against the others."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
 
 SMALL = dict(num_clients=8, hidden=(16,), top_k=4, local_batch=8, local_epochs=2,
              rounds=3, use_pallas_agg=True)

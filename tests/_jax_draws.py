@@ -52,8 +52,8 @@ initial key ``fl_rng``:
     c))`` as ``(lm.tokens, lm.copy)``.
 
 A serving trace (``repro/serve/arrivals.py``) splits ``PRNGKey(seed)``
-4 ways: ``serve.arrival``, ``serve.gen_len`` and ``serve.prompts`` take
-the first three keys (``jax.random.randint`` from ``lo`` equals ``lo``
+4 ways: ``serve.arrival``, ``serve.gen_len``, ``serve.prompts`` and
+``serve.patches`` (a VLM trace's patch embeddings) take the four keys (``jax.random.randint`` from ``lo`` equals ``lo``
 plus its draw from 0 over the same span, so ``gen_len``'s offset draw is
 the JAX package's).
 
@@ -135,7 +135,7 @@ def _priors(seed, cids, epochs, alpha, k, offset):
 
 _FAULT_PLAN = ("attempts", "partition", "partition_frac", "fog", "corrupt")
 _ATTEMPT_SITES = {"faults.timeout": 0, "faults.crash": 1, "faults.drop": 2}
-_SERVE = {"serve.arrival": 0, "serve.gen_len": 1, "serve.prompts": 2}
+_SERVE = {"serve.arrival": 0, "serve.gen_len": 1, "serve.prompts": 2, "serve.patches": 3}
 _ASYNC_FOLDS = {"churn": 101, "straggler": 102, "cohort.async": 103}
 _ASYNC_FAULTS = ("attempt0", "partition", "partition_frac", "corrupt", "noise",
                  "fog", "client")
@@ -228,6 +228,8 @@ class JaxDraws:
             for _ in range(index + 1):
                 k1, key = jax.random.split(key)
             return _t(jax.random.normal(k1, shape))
+        if site in _SERVE:
+            return _t(jax.random.normal(self._serve_key(site), shape))
         offsets = {"templates": 10, "data_sizes": 40, "lm.domains": 0,
                    "lm.data_sizes": 3}
         if site in offsets:

@@ -29,9 +29,9 @@ import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (re-exported: autouse in importers)
 
 from repro.configs import get_reduced as jax_reduced
 from repro.core.scheduler import SchedulerConfig as JaxSched
@@ -52,16 +52,6 @@ MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
 METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
 BASE = dict(num_clients=16, slots=4, local_steps=2)
 INT_METRICS = ("num_selected", "slot_participation", "cold_starts")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module's small CPU tensors, the count
-    restored after (the suite runs several workers on one CPU)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _np(x):

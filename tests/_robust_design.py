@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from _async_parity import one_thread  # noqa: F401 (autouse, re-exported)
 from _pipeline_gates import kernel_model, kernel_transform
 from _robust_network import robust_aggregate
 

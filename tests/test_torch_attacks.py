@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.fl import attacks as ja
 from repro_torch import tree

@@ -140,3 +140,63 @@ def test_paged_kernel_head_dim_256(case):
                                window).to(torch.bfloat16)
     np.testing.assert_allclose(outb.float().cpu().numpy(), refb.float().cpu().numpy(),
                                rtol=1e-2, atol=1e-3)
+
+
+# The HYBRID, VLM and ENCDEC families' shapes: hymba-1.5b's 25 query
+# heads over 5 kv heads (a group of 5, which no earlier config has) at
+# head_dim 64, global and past its 1,024 window; internvl2-2b's 136-row
+# prompt (128 tokens and 8 patches: not a whole number of tiles) at
+# head_dim 128, 16 heads over 8; seamless-m4t-medium's 16 heads over 16,
+# its bidirectional encoder and its cross-attention (Sq 128 and Sq 1
+# against 128 source frames).
+FLASH_FAMILY_CASES = [
+    (1, 25, 5, 128, 128, 64, 0, False),  # hymba prefill, global layer
+    (1, 25, 5, 1100, 1100, 64, 1024, False),  # hymba, past the window
+    (2, 25, 5, 40, 300, 64, 1024, False),  # group 5, Sq < Sk
+    (1, 16, 8, 136, 136, 128, 0, False),  # internvl2 prefill
+    (1, 16, 16, 128, 128, 64, 0, True),  # seamless encoder / cross, Sq = Sk
+    (8, 16, 16, 1, 128, 64, 0, True),  # seamless decode-step cross
+    (2, 16, 16, 5, 128, 64, 0, True),  # cross, Sq < Sk, one tile of q
+]
+PAGED_FAMILY_CASES = [
+    (8, 5, 5, 64, 16, 10, -1, [129, 160, 1, 0, 144, 17, 131, 150]),  # hymba global
+    (4, 5, 5, 64, 16, 80, 1024, [1280, 1025, 1024, 0]),  # hymba, past the window
+    (8, 8, 2, 128, 16, 11, -1, [137, 168, 140, 0, 1, 150, 160, 138]),  # internvl2
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_FAMILY_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_family_shapes(case, dtype):
+    _card()
+    b, h, hkv, sq, sk, hd, window, bidir = case
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).cuda().to(dt)
+               for x in flash_inputs(b, h, hkv, sq, sk, hd, seed=5))
+    out = flash_attention_cuda(*(x.transpose(1, 2) for x in (q, k, v)), window=window,
+                               bidirectional=bidir).transpose(1, 2)
+    ref = flash_attention_ref(q.float(), k.float(), v.float(), window=window,
+                              bidirectional=bidir).to(dt)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=1e-2, atol=1e-3)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_FAMILY_CASES, ids=str)
+def test_paged_kernel_family_shapes(case):
+    _card()
+    s, hkv, g, hd, page, n, window, lengths = case
+    q, kp, vp, table, lens = (torch.from_numpy(x).cuda()
+                              for x in paged_inputs(s, hkv, g, hd, page, n, lengths=lengths))
+    out = paged_attention(q, kp, vp, table, lens, window)
+    ref = paged_attention_ref(q, kp, vp, table, lens, window)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=2e-5)
+    raw = paged_attention_cuda(q, kp, vp, table, lens, window=max(window, 0))
+    assert not raw[lens == 0].any()
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    outb = paged_attention(qb, kb, vb, table, lens, window)
+    refb = paged_attention_ref(qb.float(), kb.float(), vb.float(), table, lens,
+                               window).to(torch.bfloat16)
+    np.testing.assert_allclose(outb.float().cpu().numpy(), refb.float().cpu().numpy(),
+                               rtol=1e-2, atol=1e-3)

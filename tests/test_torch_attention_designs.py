@@ -27,6 +27,7 @@ import pytest
 import torch
 from _attention_cases import (FLASH_CASES, PAGED_CASES, PAGED_SPLIT_CASES, flash_inputs,
                               paged_inputs)
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.kernels.flash_attention.flash_attention import flash_attention_fwd
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref

@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import torch
 from _lm_parity import batches, to_torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro import checkpoint as jckpt
 from repro.configs import get_reduced as jax_reduced

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.models import layers as jl
 from repro_torch.models import layers as tl

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.data import emnist_like as je
 from repro.data import telemetry as jtel

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from _pipeline_gates import FULL_GATES, GATES, check_gate, fixture, kernel_model, to_torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.core.aggregation import median_aggregate, trimmed_mean_aggregate
 from repro.kernels.delta_pipeline import delta_pipeline_apply as jax_apply

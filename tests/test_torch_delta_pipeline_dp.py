@@ -4,6 +4,7 @@ kernel in interpret mode. See ``_pipeline_gates`` for the tolerances and
 ``test_torch_delta_pipeline.py`` for the other half."""
 import pytest
 from _pipeline_gates import GATES, check_gate
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize(

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.data.telemetry import DeviceProfiles as JProf
 from repro.sim import faas as jfaas

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.kernels.fedavg import fedavg_apply as jax_fedavg_apply
 from repro.kernels.fedavg import fedavg_apply_ref as jax_fedavg_ref

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 from _pipeline_gates import kernel_model
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.kernels.delta_pipeline import delta_pipeline_apply as jax_apply
 from repro.kernels.delta_pipeline import delta_pipeline_partial as jax_partial

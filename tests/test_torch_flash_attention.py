@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from _attention_cases import FLASH_CASES, flash_inputs
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.kernels.flash_attention import flash_attention as jax_ops_flash
 from repro.kernels.flash_attention.flash_attention import flash_attention_fwd

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from _pipeline_gates import fixture, kernel_model, to_torch
+from _threads import one_thread  # noqa: F401 (autouse)
 from test_torch_simulator import check_three_rounds
 
 from repro.core.aggregation import fedavg_stacked as jax_fedavg_stacked

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.data import har_like as jh
 from repro_torch.data import har_like as th

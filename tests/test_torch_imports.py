@@ -47,9 +47,9 @@ def test_import_loads_no_jax_and_keeps_torch_state():
         "import repro_torch.optim, repro_torch.optim.schedules, repro_torch.data.synthetic\n"
         "import repro_torch.checkpoint, repro_torch.launch.train\n"
         "import repro_torch.models.moe, repro_torch.serve.sweep, repro_torch.sim.faas\n"
-        "from repro_torch.configs import get_config\n"
-        "[get_config(a) for a in ('qwen2.5-14b', 'yi-9b', 'gemma3-12b', "
-        "'moonshot-v1-16b-a3b', 'mixtral-8x7b')]\n"
+        "import repro_torch.models.encdec, repro_torch.models.ssm, repro_torch.tools.profile_serve\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "[get_config(a) for a in ARCH_IDS]\n"
         "after = (torch.get_num_threads(), torch.get_default_dtype(), "
         "torch.initial_seed(), torch.backends.cuda.matmul.allow_tf32, "
         "torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())\n"

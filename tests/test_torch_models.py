@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.configs import get_reduced as jax_reduced
 from repro.models import build_model as jax_build
@@ -202,8 +203,16 @@ def test_forward_hidden_matches_jax_with_a_sliding_window():
 
 
 def test_unported_families_and_bad_trees_raise():
-    with pytest.raises(NotImplementedError, match=r"item 10\(b2\)"):
-        get_config("seamless-m4t-medium")
+    """Every family of the JAX roster builds now (seamless-m4t-medium,
+    the last to raise here, included); an unknown arch and a tree that
+    does not fit its declarations still raise."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models import Family
+
+    seamless = get_config("seamless-m4t-medium")
+    assert seamless.family is Family.ENCDEC and seamless.num_encoder_layers == 12
+    assert build_model(seamless).cfg is seamless
+    assert len(ARCH_IDS) == 10 and all(get_config(a).name == a for a in ARCH_IDS)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_reduced("llama3.2-1b", **F32)
@@ -212,6 +221,21 @@ def test_unported_families_and_bad_trees_raise():
     bad = dict(good, final_norm=np.zeros((63,), np.float32))
     with pytest.raises(ValueError, match="final_norm"):
         convert.model_params_from_jax(cfg, bad, device="cpu")
+    # hymba's float32 SSM leaves in a bf16 tree: a missing one, or one in
+    # bf16, is refused
+    hcfg = get_reduced("hymba-1.5b")
+    hgood = jax.tree.map(np.asarray, jax_build(jax_reduced("hymba-1.5b")).init(
+        jax.random.PRNGKey(1)))
+    assert convert.model_params_from_jax(hcfg, hgood, device="cpu")["layers"][
+        "ssm_a_log"].dtype == torch.float32
+    layers = dict(hgood["layers"])
+    layers.pop("ssm_dt_bias")
+    with pytest.raises(ValueError, match="keys"):
+        convert.model_params_from_jax(hcfg, dict(hgood, layers=layers), device="cpu")
+    layers = dict(hgood["layers"], ssm_d=hgood["layers"]["ssm_d"].astype(
+        hgood["layers"]["wq"].dtype))
+    with pytest.raises(ValueError, match="ssm_d: dtype"):
+        convert.model_params_from_jax(hcfg, dict(hgood, layers=layers), device="cpu")
 
 
 def test_init_is_seeded_and_in_the_config_dtype():

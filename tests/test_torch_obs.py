@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro import obs as jobs
 from repro_torch import obs as tobs

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro import optim as jopt
 from repro_torch import optim as topt

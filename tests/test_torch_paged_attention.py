@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from _attention_cases import PAGED_CASES, paged_inputs
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.paged_attention.ref import gather_pages as jax_gather

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 from test_torch_simulator import SMALL, _np
 
 from repro.core.types import init_population_scheduler_state as jax_init_pop

@@ -8,6 +8,7 @@ file stays well under a minute on one core.
 """
 import pytest
 from test_torch_simulator import check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("drift_period", [0, 2])

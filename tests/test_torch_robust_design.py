@@ -17,6 +17,7 @@ from _robust_design import (
     MASKS,
     network_keeps_nan,
     network_matches_jax,
+    one_thread,  # noqa: F401 (autouse)
     same_nan,
 )
 from _robust_network import key_values, network, network_sort, next_pow2, sort_keys

@@ -2,7 +2,7 @@
 clients (see ``_robust_design.py``; split from
 ``test_torch_robust_design.py`` by C)."""
 import pytest
-from _robust_design import AGGS, GATES, MASKS, network_matches_jax
+from _robust_design import AGGS, GATES, MASKS, network_matches_jax, one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("gate", GATES)

@@ -2,7 +2,7 @@
 clients, gates int8 and top-k (see ``_robust_design.py``; split from
 ``test_torch_robust_design.py`` by C, and at C = 256 by gate)."""
 import pytest
-from _robust_design import AGGS, MASKS, network_matches_jax
+from _robust_design import AGGS, MASKS, network_matches_jax, one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("gate", ["int8", "topk"])

@@ -8,6 +8,7 @@ import dataclasses
 
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro_torch.fl.simulator import FedFogSimulator, SimulatorConfig
 

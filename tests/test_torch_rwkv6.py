@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.configs import get_config as jax_config
 from repro.configs import get_reduced as jax_reduced
@@ -182,11 +183,13 @@ def test_time_mix_routes_the_recurrence_by_its_arguments(models, monkeypatch):
 
 
 def test_build_model_serves_rwkv6_and_the_rest_still_raise():
+    """rwkv6 builds as the SSM family, and the families that raised here
+    before (HYBRID, ENCDEC) build as theirs now; the SSM family's cache."""
     model = build_model(get_config("rwkv6-1.6b"))
     assert model.cfg.family is Family.SSM
-    for arch in ("hymba-1.5b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            get_config(arch)
+    for arch, family in (("hymba-1.5b", Family.HYBRID),
+                         ("seamless-m4t-medium", Family.ENCDEC)):
+        assert build_model(get_config(arch)).cfg.family is family
     cache = build_model(get_reduced("rwkv6-1.6b", **SMALL)).init_cache(3, 99, device="cpu")
     assert tuple(cache["wkv"].shape) == (2, 3, 2, 64, 64) and cache["pos"] == 0
     assert cache["wkv"].dtype == torch.float32 and tuple(cache["tm_x"].shape) == (2, 3, 128)

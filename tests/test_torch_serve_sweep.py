@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 from repro.configs import get_reduced as jax_reduced
 from repro.models import build_model as jax_build
 from repro.serve import ContinuousBatchingEngine as JaxEngine

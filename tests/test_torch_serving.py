@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.configs import get_reduced as jax_reduced
 from repro.models import build_model as jax_build
@@ -308,12 +309,17 @@ def test_launcher_serves_rwkv6_on_the_cpu():
 
 
 def test_unported_families_do_not_serve():
+    """HYBRID serves now (its plan and its pool, with the slot-indexed SSM
+    and conv states); ENCDEC keeps raising, as in the JAX package."""
     from repro_torch.models import Family
 
     cfg = get_reduced("llama3.2-1b")
     hybrid = dataclasses.replace(cfg, family=Family.HYBRID, ssm_state=8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        paged.PagePlan.build(hybrid, 8, 6)
+    plan = paged.PagePlan.build(hybrid, 8, 6)
+    assert plan.n_patches == 0 and plan.prompt_eff == 8
+    pool = paged.init_pool(hybrid, plan, 3, 6, device="cpu")
+    assert tuple(pool["ssm_state"].shape) == (2, 3, 64, 8)
+    assert tuple(pool["conv_state"].shape) == (2, 3, 3, 64)
     encdec = dataclasses.replace(cfg, family=Family.ENCDEC, num_encoder_layers=2)
     with pytest.raises(NotImplementedError, match="ENCDEC"):
         paged.PagePlan.build(encdec, 8, 6)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.fl.simulator import FedFogSimulator as JaxSimulator
 from repro.fl.simulator import SimulatorConfig as JaxConfig

@@ -7,6 +7,7 @@ mean route); the robust aggregators are in
 ``test_torch_simulator_robust.py``."""
 import pytest
 from test_torch_simulator import check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("attack", ["noise", "model_replacement", "dropout"])

@@ -6,6 +6,7 @@ every fault counter held exactly): fog outages at two fogs, with and
 without failover, dense and at population 64."""
 import pytest
 from test_torch_simulator import SMALL, check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.fl.simulator import FedFogSimulator as JaxSimulator
 from repro.fl.simulator import SimulatorConfig as JaxConfig

@@ -4,6 +4,7 @@ priors, gain and phase offsets from ``seed + 20 … 23``; tolerances in
 ``test_torch_simulator.py``, whose ``check_three_rounds`` runs it): the
 1152→16→6 MLP through K3's mean route, dense and at population 64."""
 from test_torch_simulator import check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_har_dense_matches_jax():

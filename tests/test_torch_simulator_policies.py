@@ -6,6 +6,7 @@ and FogFaaS pays its platform's orchestration and keeps no container
 warm."""
 import pytest
 from test_torch_simulator import check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("policy", ["fogfaas", "vanilla"])

@@ -5,6 +5,7 @@ runs it): K3's median / trimmed route (``robust_kernel``) on the kernel
 path, and ``core.aggregation`` on the reference path."""
 import pytest
 from test_torch_simulator import check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("attack,aggregator,pallas", [

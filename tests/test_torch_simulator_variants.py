@@ -3,6 +3,7 @@ simulator, three rounds from one state with the JAX package's draws
 (tolerances in ``test_torch_simulator.py``, whose ``check_three_rounds``
 runs it)."""
 from test_torch_simulator import check_three_rounds
+from _threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_pallas_median_dp_matches_jax():

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from _jax_draws import JaxDraws
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.core.types import init_scheduler_state as jax_init_sched
 from repro.data import synthetic as js

@@ -7,6 +7,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs import get_reduced

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro.kernels.wkv6 import ops as jax_ops
 from repro.kernels.wkv6.ref import wkv6_ref as jax_wkv6_ref

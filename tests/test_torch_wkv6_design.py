@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from _wkv6_chunked import TW, wkv6_chunked
+from _threads import one_thread  # noqa: F401 (autouse)
 from repro.kernels.wkv6 import ops as jax_ops
 from repro.kernels.wkv6.ref import wkv6_ref as jax_wkv6_ref
 
