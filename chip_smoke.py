@@ -251,10 +251,32 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 the uninterrupted one's; ms per round, tokens per wall
                 second, the model FLOP share and peak bytes printed beside
                 the card's name and power limit;
+                dist: the client-sharded LM round (python -m
+                repro_torch.dist.selftest, a child process: its ranks
+                start by spawn) on full-width llama3.2-1b in bf16, 2 ranks
+                of one slot each sharing the card through gloo (its
+                all-reduce stages CUDA tensors through host memory; NCCL
+                needs a card per rank), --pallas-agg, 2 rounds of gates
+                legacy and 1 of full (clip, int8, DP), (a) flat and (b)
+                with the pod axis as a two-node fog tier: K4 once per
+                rank per round, K2 once per rank in the full round, K3
+                never; one all-reduce of the (P+2,) float32 pack a round,
+                the contract asserted on every rank; every rank's state
+                equal; rank 0's parameters within one bf16 ulp and its
+                momentum within 2^-20 of each leaf's max of the
+                single-process round with C = 2 on the same inputs (run
+                by the child after its ranks exit, from rank 0's state
+                before each round), held on fingerprints (per leaf the
+                float64 sum, sum of squares and 4,096 seeded
+                coordinates); per-rank peak bytes, round and all-reduce
+                wall ms printed; then K4 alone at a rank's (1, P) bit for
+                bit its plain version, timed beside it, torch.mv,
+                torch.mul (at one row the same sum) and the byte bound;
   5. result   — the kernels' JSON line (K3 and K4 with their async and
                 sweep launches beside the main paths', K2-K4 with the
-                train phase's launches and times), nvidia-smi's line
-                and, last, {"ok": true, "device": {...}}.
+                train and dist phases' launches and times, K4's dist_*
+                times at (1, P)), nvidia-smi's line and, last, {"ok":
+                true, "device": {...}}.
 
 Each phase prints its seconds (``[phase] name=... seconds=...``).
 
@@ -2857,6 +2879,136 @@ def phase_train(torch, smi) -> dict:
     return {"launches": totals, "times": times}
 
 
+# ---- the client-sharded LM round: dist.selftest on two ranks ------------ #
+# Two ranks of one slot each (plan_for(device_count=2, zero=1)) share the
+# one card through gloo (its all-reduce stages CUDA tensors through host
+# memory; NCCL refuses two ranks on one card). Run as a child process of
+# this one: the ranks start with ``spawn``, this process has CUDA set up.
+DIST_ARGV = ["-m", "repro_torch.dist.selftest", "--arch", "llama3.2-1b", "--scale", "full",
+             "--devices", "2", "--zero", "1", "--pallas-agg", "--gates", "legacy,legacy,full",
+             "--seq-len", "128", "--local-steps", "2",
+             "--device", "cuda", "--backend", "gloo", "--check", "--json"]
+DIST_RUNS = (("a: flat, client 2", []), ("b: fog 2 (pod 2 x client 1)", ["--fog-nodes", "2"]))
+DIST_TIMEOUT_S = 420
+
+
+def run_dist(extra, state_dir) -> dict:
+    """One ``dist.selftest`` child; its JSON result (it exits non-zero, and
+    this raises, if a rank fails or a check does not hold)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, *DIST_ARGV, *extra, "--state-dir", str(state_dir)],
+                          capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=DIST_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+    if proc.returncode != 0 or res is None:
+        tail = proc.stderr[-3000:] if res is None else json.dumps(res)[-3000:]
+        raise RuntimeError(f"dist selftest {extra} exited {proc.returncode}: {tail}")
+    return res
+
+
+def k4_per_rank(torch, cu, dp, p) -> dict:
+    """K4 at a rank's LM shape (1, P), on the card alone: held bit for bit
+    against its plain version (every gate off), timed beside the plain
+    version, the byte bound (P floats read, P written) and two library
+    calls of the same function: ``torch.mv`` on the (P, 1) column, and
+    ``torch.mul`` of the row by dm, which at C = 1 is the whole sum."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    upd = torch.randn((1, p), generator=gen, device="cuda")
+    dm = torch.full((1,), 123.0, device="cuda")
+    out = torch.empty((p,), dtype=torch.float32, device="cuda")
+    cu.launch_partial(upd, dm, None, None, None, out, compression="none")
+    plain = dp.delta_pipeline_partial_ref(upd, dm)
+    check(torch.equal(out, plain), "dist: K4 at (1, P) differs from its plain version")
+    del plain
+    col = upd.t()
+    res = dict(
+        shape=f"(1, {p})",
+        ms=cuda_ms(lambda i: cu.launch_partial(upd, dm, None, None, None, out,
+                                               compression="none"), 10, 2),
+        plain_ms=cuda_ms(lambda i: dp.delta_pipeline_partial_ref(upd, dm), 3, 1),
+        library_ms=cuda_ms(lambda i: torch.mv(col, dm, out=out), 10, 2),
+        library_mul_ms=cuda_ms(lambda i: torch.mul(upd[0], dm, out=out), 10, 2),
+        bytes=8 * p, bound_by="bytes",
+        bound_ms=max(8 * p / HBM_BYTES_PER_S, 2 * p / FP32_FLOP_PER_S) * 1e3,
+        equal_to_plain=True,
+    )
+    del upd, out, col
+    return res
+
+
+def phase_dist(torch, smi) -> dict:
+    """The client-sharded LM round (``dist.selftest``): llama3.2-1b at full
+    width and depth in bf16 on 2 ranks of one slot each, ``--pallas-agg``,
+    2 rounds of gates legacy then 1 of full (clip, int8, DP, FedAvgM);
+    (a) flat, (b) the pod axis as a two-node fog tier. Gates: every check
+    of the selftest (the contract on every rank each round, the replicated
+    state, rank 0's parameters within one bf16 ulp and momentum within
+    2^-20 of its leaf's max of the single-process round with C = 2, run
+    by the child after its ranks exit, from rank 0's state before each
+    round); K4 once per rank per round, K2 once per rank in the full
+    round, K3 never; exactly one delta all-reduce of (P+2)·4 bytes a
+    round; finite losses; slots participating. Prints per-rank peak
+    bytes, round and all-reduce wall ms; then times K4 at (1, P)."""
+    import shutil
+
+    from repro_torch.kernels import delta_pipeline as dp
+    from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_dir = ROOT / "build" / "dist_states"
+    totals = {"delta_pipeline_partial": 0, "delta_sq_norms": 0, "delta_pipeline_apply": 0}
+    for name, extra in DIST_RUNS:
+        shutil.rmtree(state_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        try:
+            res = run_dist(extra, state_dir)
+        finally:
+            shutil.rmtree(state_dir, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        gates = res["gates"]
+        check(res["ok"], f"dist {name}: selftest not ok")
+        check(all(math.isfinite(x) for x in res["losses"]), f"dist {name}: loss not finite")
+        check(all(n > 0 for n in res["participation"]), f"dist {name}: no slot took part")
+        for rank, rounds in enumerate(res["launches"]):
+            for g, ln in zip(gates, rounds):
+                want = dict(delta_pipeline_partial=1, delta_pipeline_apply=0,
+                            delta_sq_norms=1 if g == "full" else 0)
+                check(ln == want, f"dist {name}: rank {rank} launched {ln}, want {want}")
+                for k, v in ln.items():
+                    totals[k] += v
+        ars = res["delta_all_reduces"]
+        p = res["param_count"]
+        for rank, rounds in enumerate(ars):
+            for r, ops in enumerate(rounds):
+                check(len(ops) == 1 and ops[0]["bytes"] == 4 * (p + 2),
+                      f"dist {name}: rank {rank} round {r}: delta all-reduces {ops}")
+        check(all(n == [1] * len(gates) for n in res["inter_client_all_reduces"]),
+              f"dist {name}: inter-client all-reduces {res['inter_client_all_reduces']}")
+        say("dist", run=repr(name), plan=res["plan"]["shape"], gates=gates,
+            losses=[round(x, 5) for x in res["losses"]], participation=res["participation"],
+            launches_rank0=res["launches"][0], peak_bytes=res["peak_bytes"],
+            round_ms=[[round(x, 1) for x in r] for r in res["round_ms"]],
+            all_reduce_ms=[[round(ops[0]["ms"], 1) for ops in r] for r in ars],
+            all_reduce_bytes=4 * (p + 2), collectives=res["collectives"],
+            world_s=round(res["world_s"], 1), reference_s=round(res["reference_s"], 1),
+            child_s=round(wall, 1), card=repr(smi))
+        for held in res["check"]:
+            say("dist", run=repr(name), round=held["round"], gates=held["gates"],
+                params=held["params"], server_mu=held.get("server_mu"),
+                metric_diffs=held["metric_diffs"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4 = k4_per_rank(torch, cu, dp, p)
+    say("dist", kernel="delta_pipeline_partial", card=repr(smi), **k4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": totals, "k4": k4}
+
+
 # ---- the MoE serving slice: moonshot-v1-16b-a3b ------------------------ #
 # The served FFN (models/moe.moe_ffn_dropless) against the plain all-experts
 # oracle (moe_ffn_reference) on one layer's own input from a real prefill:
@@ -3684,6 +3836,18 @@ def main() -> int:
         kernels[name]["train_launches"] = trn["launches"][name]
         kernels[name]["train_ms"] = trn["times"][key]["ms"]
         kernels[name]["train_bound_ms"] = trn["times"][key]["bound_ms"]
+
+    # the client-sharded LM round on two ranks sharing the card (gloo): K4
+    # once per rank per round, K2 in the clipped round
+    t0 = time.perf_counter()
+    dst = phase_dist(torch, smi)
+    say("phase", name="dist", seconds=time.perf_counter() - t0)
+    for name in ("delta_pipeline_partial", "delta_sq_norms", "delta_pipeline_apply"):
+        kernels[name]["dist_launches"] = dst["launches"][name]
+    k4 = kernels["delta_pipeline_partial"]
+    for key in ("ms", "plain_ms", "library_ms", "library_mul_ms", "bound_ms"):
+        k4[f"dist_{key}"] = dst["k4"][key]
+    k4["dist_shape"] = dst["k4"]["shape"]
 
     # 5. result: K1 to K7
     print(json.dumps({"kernels": [kernels[name] for name in kernel_counters()]}), flush=True)

@@ -3,7 +3,7 @@
 ``get_config(arch_id)`` returns the assigned ``ModelConfig``;
 ``ARCH_IDS`` is the roster, the JAX package's ten. The documented shape
 skips (``get_skips``) and ``configs/shapes.py`` belong to the
-distributed path (ROADMAP.md queue 1, item 11).
+distributed path (ROADMAP.md queue 1, item 11(b)).
 """
 from __future__ import annotations
 

@@ -31,13 +31,19 @@ def flip_labels(tokens: torch.Tensor, malicious: torch.Tensor, vocab_size: int):
 def corrupt_deltas(
     deltas, malicious: torch.Tensor, kind: str, draws, *, round: int,
     site: str = "attack", noise_scale: float = 0.5, replacement_scale: float = 10.0,
+    rows: slice | None = None,
 ):
     """Apply a delta-space attack to the malicious rows of ``deltas``, a
     (C, ...) tree. ``draws`` and ``site`` name the normals' source, keyed
-    by ``round``."""
+    by ``round``. ``rows`` says which of the (C,) ``malicious`` rows
+    ``deltas`` holds (a rank's slots under mesh rules): the normals are
+    drawn for all C rows, as on one device, and sliced."""
     if kind in ("none", "label_flip"):
         return deltas  # label_flip acts on data, not deltas
     flat = tree.leaves(deltas)
+    n = malicious.shape[0]
+    if rows is not None:
+        malicious = malicious[rows]
 
     def mal(x):
         return malicious.reshape((-1,) + (1,) * (x.dim() - 1))
@@ -48,7 +54,9 @@ def corrupt_deltas(
     if kind not in ("noise", "model_replacement"):
         raise ValueError(f"unknown attack {kind!r}")
     sizes = tuple(math.prod(x.shape[1:]) for x in flat)
-    z = draws.normal(site, (flat[0].shape[0], sum(sizes)), segments=sizes, round=round)
+    z = draws.normal(site, (n, sum(sizes)), segments=sizes, round=round)
+    if rows is not None:
+        z = z[rows]
     out = []
     for x, zi in zip(flat, torch.split(z, sizes, dim=1)):
         zi = zi.reshape(x.shape).to(x.dtype)

@@ -172,7 +172,7 @@ def fog_assignment(num_clients: int, fog_nodes: int, device=None) -> torch.Tenso
             * fog_nodes) // num_clients
 
 
-def _discounted(mask, weights, staleness, staleness_exponent):
+def discounted_weights(mask, weights, staleness, staleness_exponent):
     """``(dm, m)``: (C,) mask·|D| with the (1+s)^-a staleness discount, and
     without it."""
     m = mask.to(torch.float32) * weights.to(torch.float32)
@@ -194,7 +194,7 @@ def fog_partial_sums(
     if assignment is None:
         assignment = fog_assignment(c, fog_nodes, dev)
     assignment = assignment.to(torch.int64)
-    dm, m = _discounted(mask, weights, staleness, staleness_exponent)
+    dm, m = discounted_weights(mask, weights, staleness, staleness_exponent)
     x = dm[:, None] * updates.to(torch.float32)
     partials = torch.zeros((fog_nodes, updates.shape[1]), dtype=torch.float32,
                            device=dev).index_add_(0, assignment, x)
@@ -275,7 +275,7 @@ def fog_pipeline_apply(
         raise ValueError(f"client count {c} not divisible by fog_nodes {fog_nodes}")
     per_fog = c // fog_nodes
     has_mu = momentum is not None and server_optimizer in ("fedavgm", "fedadam")
-    dm, m = _discounted(mask, weights, staleness, staleness_exponent)
+    dm, m = discounted_weights(mask, weights, staleness, staleness_exponent)
     total, sdm, sm = None, [], []
     for f in range(fog_nodes):
         sl = slice(f * per_fog, (f + 1) * per_fog)

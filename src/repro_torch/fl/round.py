@@ -33,8 +33,30 @@ default configuration (FedFog policy, no attack, no DP, dense, no
 faults) draws nothing.
 
 The round reads nothing back from the device: no ``.item()``, no host
-copy; Python constants on the card are fills (``device.scalar``). The
-mesh path (``rules``) belongs to ROADMAP.md queue 1, item 11.
+copy; Python constants on the card are fills (``device.scalar``).
+
+Under mesh rules (``rules``, ``dist.sharding.ShardingRules`` of this
+rank's ``dist.meshes.Mesh``) the round runs on every rank of a
+``torch.distributed`` world, the JAX package's client-sharded round:
+
+  * the scheduler, telemetry, draws and fault plan run replicated on
+    every rank from the same draws (the JAX round's replicated island);
+    slot-indexed arrays are sliced to the rank's rows;
+  * the rank trains only its ``C / client_ways`` slots
+    (``rules.slot_range``) into a (C_local, P) buffer, one after another;
+    along the ``zero`` axis it takes its share of each step's batch
+    (``rules.batch_range``) and the slot's gradient is averaged with ONE
+    all-reduce over the zero group a local step (never crossing clients);
+    the parameters stay replicated;
+  * the server pass is ``delta_pipeline_apply_sharded`` (K4 on the rank's
+    rows, one packed all-reduce over the client group, per tier with a
+    fog tier) when ``use_pallas_agg``; otherwise the plain per-rank
+    partial sum takes the same single packed all-reduce;
+  * the loss is reduced with a scalar-sized all-reduce over the world.
+
+The state stays replicated: every rank computes the same new state.
+Median / trimmed and the attacks need every client's rows on one rank
+and raise under rules (ROADMAP.md item 11(b)).
 """
 from __future__ import annotations
 
@@ -54,6 +76,7 @@ from repro_torch.fl import fog as fog_mod
 from repro_torch.fl.compression import apply_compression, wire_bytes_per_param
 from repro_torch.fl.fuse import fused_gaussian_noise
 from repro_torch.fl.state import FLConfig, FLState
+from repro_torch.kernels.delta_pipeline import sharded as sharded_mod
 from repro_torch.models.transformer import Runtime
 from repro_torch.obs.ranges import profiler_range
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm, sgdm
@@ -62,8 +85,8 @@ from repro_torch.sim.des import RoundCostModel
 from repro_torch.sim.faults import config as faults_config
 from repro_torch.sim.faults import inject as faults_inject
 
-_MESH = ("the mesh path (rules=, delta_pipeline_apply_sharded) is not ported "
-         "yet: ROADMAP.md queue 1, item 11")
+_NOT_UNDER_RULES = ("under mesh rules is not ported yet (it needs every client's rows "
+                    "on one rank): ROADMAP.md queue 1, item 11(b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,10 +182,14 @@ class _Layout:
             for off, n, shape, dt in self.spans()])
 
     def write_rows(self, buf: torch.Tensor, stacked) -> None:
-        """Write a (C, ...)-stacked tree back into the (C, P) buffer."""
+        """Write a (C, ...)-stacked tree back into the (C, P) buffer (a
+        leaf that is still the buffer's own view, as ``rows`` gives a
+        float32 leaf no stage changed, is already there)."""
         c = buf.shape[0]
         for x, (off, n, _, _) in zip(tree.leaves(stacked), self.spans()):
-            buf[:, off:off + n].copy_(x.reshape(c, n))
+            dst = buf[:, off:off + n]
+            if x.data_ptr() != dst.data_ptr() or x.dtype != dst.dtype:
+                dst.copy_(x.reshape(c, n))
 
 
 def _value_and_grad(loss_fn, params, batch):
@@ -193,9 +220,17 @@ def make_round_fn(
 
     ``draws`` is the draw provider; by default a ``TorchDraws`` of seed 0
     on the state's device."""
-    if rules is not None:
-        raise NotImplementedError(_MESH)
     c = fl_cfg.slots
+    lo, hi = 0, c  # the slots this rank trains
+    if rules is not None:
+        if fl_cfg.aggregator != "fedavg":
+            raise NotImplementedError(f"aggregator {fl_cfg.aggregator!r} {_NOT_UNDER_RULES}")
+        if attack.kind != "none":
+            raise NotImplementedError(f"attack {attack.kind!r} {_NOT_UNDER_RULES}")
+        lo, hi = rules.slot_range(c)
+        if fl_cfg.fog_nodes > 1 and rules.client_ways > 1:
+            sharded_mod.split_fog_axes(rules.mesh, rules.plan.client_axes, fl_cfg.fog_nodes)
+    zero = rules.zero_ways if rules is not None else 1
     init_inner, update_inner = _inner_optimizer(fl_cfg)
     flops_round = flops_per_client_round or 0.0
     # §IV.F cost accounting shared with the paper-scale simulator
@@ -240,23 +275,37 @@ def make_round_fn(
             losses.append(loss)
         return losses, tree.map(lambda a: a / mb, g_acc)
 
+    def zero_mean(grads, layout, dev):
+        """The slot's gradient averaged over its zero shares: ONE float32
+        all-reduce over the zero group (equal shares, so the mean of the
+        shares' mean-loss gradients is the whole batch's)."""
+        flat = layout.flatten(grads, dev)
+        torch.distributed.all_reduce(flat, group=rules.mesh.group(("zero",)))
+        return layout.unflatten(flat.div_(zero))
+
     def local_training(params0, model_batch, layout, dev):
-        """Every slot's E local steps, one slot after another, each delta
-        written into its row of the (C, P) float32 buffer. Returns the
-        buffer and the JAX round's ``mean_loss`` (the last step's loss,
-        averaged over slots, and over microbatches in the JAX order)."""
+        """This rank's slots' E local steps, one slot after another, each
+        delta written into its row of the (C_local, P) float32 buffer.
+        Returns the buffer and the JAX round's ``mean_loss`` (the last
+        step's loss, averaged over slots, and over microbatches in the
+        JAX order; under rules averaged over every rank's slots and zero
+        shares with one scalar-sized all-reduce)."""
         e = fl_cfg.local_steps
-        buf = torch.empty((c, layout.p), dtype=torch.float32, device=dev)
+        buf = torch.empty((hi - lo, layout.p), dtype=torch.float32, device=dev)
         last = []  # [slot][microbatch] losses of the last step
-        for s in range(c):
+        for s in range(hi - lo):
             params_s = params0
             inner = init_inner(params0)
             for step in range(e):
                 batch_s = {}
                 for k, v in model_batch.items():
                     rows = v.shape[1] // e
-                    batch_s[k] = v[s, step * rows:(step + 1) * rows]
+                    b_lo, b_hi = (rules.batch_range(rows) if rules is not None
+                                  else (0, rows))
+                    batch_s[k] = v[s, step * rows + b_lo:step * rows + b_hi]
                 losses, grads = grad_fn(params_s, batch_s)
+                if zero > 1:
+                    grads = zero_mean(grads, layout, dev)
                 updates, inner = update_inner(grads, inner, params_s)
                 params_s = apply_updates(params_s, updates)
                 del grads, updates
@@ -266,7 +315,14 @@ def make_round_fn(
                 d = (p.to(torch.float32) - p0.to(torch.float32)).to(p.dtype)
                 buf[s, off:off + n].copy_(d.reshape(-1))
             del params_s, inner
-        if fl_cfg.microbatch <= 1:
+        if rules is not None:
+            # Σ over every rank's slots and zero shares, per microbatch
+            per_mb = torch.sum(torch.stack([torch.stack(ls) for ls in last]), dim=0)
+            torch.distributed.all_reduce(per_mb)
+            per_mb = per_mb / (c * zero)
+            mean_loss = per_mb[0] if fl_cfg.microbatch <= 1 else (
+                torch.sum(per_mb) / fl_cfg.microbatch)
+        elif fl_cfg.microbatch <= 1:
             mean_loss = torch.mean(torch.stack([ls[0] for ls in last]))
         else:
             acc = torch.zeros((), dtype=torch.float32, device=dev)
@@ -302,7 +358,7 @@ def make_round_fn(
         # ---- 2. local training: C slots × E local steps --------------- #
         with _phase("local_training"):
             model_batch = {
-                k: v.reshape((c, v.shape[0] // c) + tuple(v.shape[1:]))
+                k: v.reshape((c, v.shape[0] // c) + tuple(v.shape[1:]))[lo:hi]
                 for k, v in batch.items() if k in ("tokens", "patch_embeds", "frames")
             }
             malicious = torch.zeros((c,), dtype=torch.bool, device=dev)
@@ -353,7 +409,7 @@ def make_round_fn(
                     deltas = attacks_mod.corrupt_deltas(
                         layout.rows(buf) if deltas is None else deltas, plan.corrupt,
                         "noise", rd, round=r, site="faults.noise",
-                        noise_scale=fc.corrupt_scale,
+                        noise_scale=fc.corrupt_scale, rows=slice(lo, hi),
                     )
                 slot_mask = plan.arrived  # Eq. 6 reweights over the arrivals
                 fault_counters = plan.counters
@@ -361,7 +417,13 @@ def make_round_fn(
 
         # ---- 4+5. aggregate (Eq. 6) + server update -------------------- #
         with _phase("server"):
-            if use_kernel:
+            if rules is not None:
+                new_params, new_mu = _sharded_server(
+                    fl_cfg, rules, layout, buf, deltas, params0, state.server_mu,
+                    slot_mask[lo:hi], slot_sizes[lo:hi], rd, r, dev)
+                del buf, deltas
+                new_count = state.server_count + 1
+            elif use_kernel:
                 if deltas is not None:
                     layout.write_rows(buf, deltas)
                     del deltas
@@ -472,6 +534,47 @@ def make_round_fn(
         return new_state, metrics
 
     return round_fn
+
+
+def _sharded_server(fl_cfg: FLConfig, rules, layout, buf, deltas, params0, mu,
+                    mask, sizes, rd, r: int, dev):
+    """The server pass under rules on this rank's (C_local, P) rows:
+    ``delta_pipeline_apply_sharded`` (K4, one packed all-reduce per tier)
+    with ``use_pallas_agg``, else the plain partial sum of the transformed
+    ``deltas`` through the same packed all-reduce and epilogue. Returns
+    (new params, new server momentum)."""
+    base_flat = layout.flatten(params0, dev)
+    seg = layout.sizes
+    noise = None
+    if fl_cfg.dp_sigma > 0:
+        noise = fused_gaussian_noise(
+            rd, fl_cfg.dp_sigma * (fl_cfg.clip_norm or 1.0), seg, round=r)
+    mu_flat = None
+    if fl_cfg.server_optimizer in ("fedavgm", "fedadam") and mu is not None:
+        mu_flat = layout.flatten(mu, dev)
+    if deltas is not None:
+        layout.write_rows(buf, deltas)
+    epi = dict(dp_noise=noise, momentum=mu_flat, server_optimizer=fl_cfg.server_optimizer,
+               server_momentum=fl_cfg.server_momentum)
+    where = dict(mesh=rules.mesh, client_axes=rules.plan.client_axes,
+                 fog_nodes=fl_cfg.fog_nodes)
+    if fl_cfg.use_pallas_agg:
+        outs = sharded_mod.delta_pipeline_apply_sharded(
+            buf, base_flat, mask, sizes, fl_cfg.server_lr, **epi, **where,
+            clip_norm=fl_cfg.clip_norm, compression=fl_cfg.compression,
+            topk_fraction=fl_cfg.topk_fraction, seg_sizes=seg)
+        new_flat, new_mu_flat = outs if mu_flat is not None else (outs, None)
+    else:
+        dm, m = fog_mod.discounted_weights(mask, sizes, None, 0.0)
+        packed = sharded_mod.packed_partials(
+            dm, m, layout.p, lambda out: torch.mv(buf.t(), dm, out=out))
+        new_flat, new_mu_flat = sharded_mod.reduce_and_combine(
+            packed, base_flat, fl_cfg.server_lr, **epi, **where)
+    new_mu = mu
+    if new_mu_flat is not None:
+        new_mu = tree.unflatten(mu, [new_mu_flat[off:off + n].view(shape)
+                                     for off, n, shape, _ in layout.spans()])
+    return layout.unflatten(new_flat), new_mu
 
 
 def _server_update(fl_cfg: FLConfig, params0, agg, mu, count):

@@ -127,14 +127,22 @@ def flat_zeros_like(params):
 
 
 def init_fl_state(model, fl_cfg: FLConfig, key, server_mu: bool | None = None,
-                  *, device=None) -> FLState:
+                  *, device=None, rules=None) -> FLState:
     """A fresh state on the CUDA card unless ``device`` names another.
 
     ``key`` is a seed (int) or a (2,) uint32 key in the JAX package's
     format; it is split into the parameters' key, which seeds the torch
     generator the model draws from, and the state's ``rng``, as the JAX
     package splits it (so ``rng`` equals the JAX state's; the parameters
-    do not: see ``convert.fl_state_from_jax``)."""
+    do not: see ``convert.fl_state_from_jax``).
+
+    Under mesh ``rules`` (``dist.sharding.ShardingRules``) every rank
+    calls this with the same key and gets the same replicated global
+    state, on its own device (``rules.mesh.device`` unless ``device``
+    names one); the slots must divide over the client ranks."""
+    if rules is not None:
+        rules.slot_range(fl_cfg.slots)  # raises unless the slots divide
+        device = rules.mesh.device if device is None else device
     device = resolve_device(device)
     key = prng_key(key) if isinstance(key, (int, np.integer)) else np.asarray(key, np.uint32)
     k_params, k_rng = split_key(key, 2)
@@ -162,6 +170,6 @@ def init_fl_state(model, fl_cfg: FLConfig, key, server_mu: bool | None = None,
 def abstract_fl_state(model, fl_cfg: FLConfig) -> FLState:
     """The dry run's shape-only state belongs to the distributed path."""
     raise NotImplementedError(
-        "abstract_fl_state serves the sharded dry run and the mesh plan, not "
-        "ported yet: ROADMAP.md queue 1, item 11"
+        "abstract_fl_state serves the sharded dry run (launch/dryrun.py), not "
+        "ported yet: ROADMAP.md queue 1, item 11(b)"
     )

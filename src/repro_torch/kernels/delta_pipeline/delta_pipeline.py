@@ -430,10 +430,13 @@ def delta_pipeline_partial_cuda(
     compression: str = "none",
     topk_fraction: float = 0.05,
     seg_sizes: tuple[int, ...] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K4: one pass over a fog's (C_local, P) block -> the (P,) partial
     ``Σ_i dm_i·T(x_i)``, T = clip pre-scale then compression emulation
-    with fog-local norms and table. Same gates as the JAX function."""
+    with fog-local norms and table. Same gates as the JAX function.
+    ``out``, a contiguous (P,) float32 tensor, takes the partial in place
+    of a new one (the sharded pass's (P+2,) pack)."""
     if updates.dim() != 2:
         raise ValueError(f"updates must be (C, P), got {tuple(updates.shape)}")
     c, p = updates.shape
@@ -443,7 +446,9 @@ def delta_pipeline_partial_cuda(
     _check(updates, "updates", (c, p))
     _check(dm, "dm", (c,))
     pre, seg, tab = gate_rows(updates, clip_norm, compression, topk_fraction, seg_sizes)
-    out = torch.empty((p,), dtype=torch.float32, device=updates.device)
+    if out is None:
+        out = torch.empty((p,), dtype=torch.float32, device=updates.device)
+    _check(out, "out", (p,))
     launch_partial(updates, dm, pre, seg, tab, out, compression=compression)
     return out
 

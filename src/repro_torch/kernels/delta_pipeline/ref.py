@@ -88,13 +88,16 @@ def delta_pipeline_partial_ref(
     compression: str = "none",
     topk_fraction: float = 0.05,
     seg_sizes=None,
+    out=None,
 ):
     """K4's function: clip + compression on this block's clients, then the
-    UNnormalized weighted sum Σ dm_i·x_i -> (P,) f32."""
+    UNnormalized weighted sum Σ dm_i·x_i -> (P,) f32 (written into
+    ``out`` when given)."""
     validate(updates, compression, seg_sizes, "fedavg", None)
     x = _transform(updates.to(torch.float32), clip_norm, compression,
                    topk_fraction, seg_sizes)
-    return _weighted_sum(dm.to(torch.float32), x)
+    agg = _weighted_sum(dm.to(torch.float32), x)
+    return agg if out is None else out.copy_(agg)
 
 
 def delta_pipeline_ref(

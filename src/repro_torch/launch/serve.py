@@ -39,7 +39,7 @@ the JAX launcher. ``--track SPEC --track-every K`` (SPEC ``jsonl:PATH``,
 K decode steps of either engine through ``repro_torch.obs``. The mesh
 options of the JAX launcher (``--devices``, ``--multi-pod``,
 ``--reduced``) belong to the distributed path and raise until ROADMAP.md
-queue 1, item 11 ports it.
+queue 1, item 11(b) ports it.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def main(argv=None):
     if args.devices or args.multi_pod or args.reduced:
         raise NotImplementedError(
             "--devices, --multi-pod and --reduced drive the distributed mesh path, "
-            "not ported yet: ROADMAP.md queue 1, item 11")
+            "not ported yet: ROADMAP.md queue 1, item 11(b)")
 
     import torch
 

@@ -9,12 +9,27 @@ synthetic token data → checkpointing, with auto-resume.
 
 ``--scale tiny`` runs the reduced config (``get_reduced(arch,
 loss_chunk=0)``); ``--scale full`` the assigned config on one card, the
-JAX package's single-host round; it needs a card. ``--pallas-agg`` runs
-the server side through the delta-pipeline kernels: K3 once a round, or
-K4 per fog with ``--fog-nodes``; K2 with a clip norm. The mesh flags of
-the JAX launcher (``--devices``, ``--multi-pod``, ``--reduced``,
-``--compile-only``) belong to the distributed path and raise until
-ROADMAP.md queue 1, item 11 ports it.
+JAX package's single-host round; it needs a card (``--reduced`` keeps
+the reduced config at either scale). ``--pallas-agg`` runs the server
+side through the delta-pipeline kernels: K3 once a round, or K4 per fog
+with ``--fog-nodes``; K2 with a clip norm.
+
+``--devices N`` runs the client-sharded round on N ranks of one host
+(``dist.world``), on the scaled plan ``plan_for(device_count=N)``
+(client × zero, ``--multi-pod``: pod × client × zero, the pod axis the
+fog tier), which sets the slots to the plan's client count; the plan is
+printed first. Every rank builds the same replicated state and data,
+trains its slots and takes part in the round's one packed all-reduce
+(asserted on every rank each round from its ``dist.CollectiveLog``);
+rank 0 prints, tracks and checkpoints, and ``main`` returns its final
+state on the host. ``--backend`` picks the collectives: ``gloo`` (the
+default; on CUDA it stages tensors through host memory and lets ranks
+share a card) or ``nccl`` (one card per rank, refused otherwise).
+``--compile-only`` (the sharded dry run) raises until ROADMAP.md queue
+1, item 11(b) ports it.
+
+    python -m repro_torch.launch.train --device cpu --devices 4 --reduced \
+        --rounds 2 [--multi-pod --fog-nodes 2] [--pallas-agg]
 
 Draws come from one ``TorchDraws(--seed)``: the state's parameters from
 the seed's key, the round's draws keyed by its index, the data
@@ -25,6 +40,7 @@ tracker.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 
@@ -52,8 +68,13 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--devices", type=int, default=0,
-                    help="the mesh's device count (distributed path: raises)")
-    ap.add_argument("--multi-pod", action="store_true")
+                    help="run the client-sharded round on N ranks (scaled "
+                         "plan: client x zero); 0 = one process")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="collectives of --devices: gloo (CPU, or cards "
+                         "shared through host memory) or nccl (a card per rank)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --devices: a leading pod axis of 2 (the fog tier)")
     ap.add_argument("--fog-nodes", type=int, default=1,
                     help="fog-tier width of the edge->fog->cloud reduction")
     ap.add_argument("--population", type=int, default=None,
@@ -84,9 +105,10 @@ def parse_args(argv=None):
                     help="min arrived/admitted fraction to aggregate; "
                          "below quorum the round is skipped")
     ap.add_argument("--reduced", action="store_true",
-                    help="reduced config on the mesh plan (distributed path: raises)")
+                    help="the reduced config at either --scale (on the mesh "
+                         "plan with --devices)")
     ap.add_argument("--compile-only", action="store_true",
-                    help="compile the sharded round only (distributed path: raises)")
+                    help="the sharded dry run (not ported yet: raises)")
     return ap.parse_args(argv)
 
 
@@ -114,17 +136,24 @@ def fault_config_from_args(args):
     )
 
 
+def model_config(args):
+    """The assigned config at ``--scale full``, else the reduced one."""
+    from repro_torch.configs import get_config, get_reduced
+
+    if args.scale == "full" and not args.reduced:
+        return get_config(args.arch)
+    return get_reduced(args.arch, loss_chunk=0)
+
+
 class Run:
     """Everything ``main`` builds before its loop: the model, the round,
-    the state (restored when resuming), the data and telemetry sources."""
+    the state (restored when resuming), the data and telemetry sources.
+    Under mesh ``rules`` (one rank of ``--devices``) the round is the
+    client-sharded one, checked against the collective contract each
+    round, on ``device``."""
 
-    def __init__(self, args):
-        if args.devices or args.multi_pod or args.reduced or args.compile_only:
-            raise NotImplementedError(
-                "--devices, --multi-pod, --reduced and --compile-only drive the "
-                "distributed mesh path, not ported yet: ROADMAP.md queue 1, item 11")
+    def __init__(self, args, rules=None, device=None):
         from repro_torch import checkpoint as ckpt
-        from repro_torch.configs import get_config, get_reduced
         from repro_torch.data.synthetic import FedDataConfig, client_data_sizes
         from repro_torch.data.telemetry import (TelemetryConfig, init_telemetry,
                                                 make_profiles)
@@ -133,12 +162,12 @@ class Run:
         from repro_torch.models import build_model
         from repro_torch.random import TorchDraws
 
-        full = args.scale == "full"
-        self.device = resolve_device(args.device)
-        if full and self.device.type != "cuda":
+        self.device = resolve_device(args.device if device is None else device)
+        if args.scale == "full" and not args.reduced and self.device.type != "cuda":
             raise ValueError("--scale full runs on the CUDA card only")
         self.args = args
-        self.cfg = get_config(args.arch) if full else get_reduced(args.arch, loss_chunk=0)
+        self.rank0 = rules is None or rules.mesh.rank == 0
+        self.cfg = model_config(args)
         self.model = build_model(self.cfg)
         self.fl_cfg = FLConfig(
             num_clients=args.clients,
@@ -161,18 +190,24 @@ class Run:
         self.round_fn = make_round_fn(
             self.model, self.fl_cfg,
             flops_per_client_round=self.model.flops_per_token() * tokens_per_client,
-            draws=self.draws,
+            rules=rules, draws=self.draws,
         )
-        self.state = init_fl_state(self.model, self.fl_cfg, args.seed, device=self.device)
+        if rules is not None:
+            self.round_fn = contract_checked(self.round_fn, rules, self.model.param_count(),
+                                             self.fl_cfg.fog_nodes)
+        self.state = init_fl_state(self.model, self.fl_cfg, args.seed, device=self.device,
+                                   rules=rules)
         self.start_round = 0
         self.checkpointer = None
         if args.ckpt_dir:
-            self.checkpointer = ckpt.AsyncCheckpointer(args.ckpt_dir)
+            if self.rank0:
+                self.checkpointer = ckpt.AsyncCheckpointer(args.ckpt_dir)
             latest = ckpt.latest_step(args.ckpt_dir) if args.resume else None
             if latest is not None:
                 self.state = ckpt.restore(args.ckpt_dir, latest, self.state)
                 self.start_round = latest
-                print(f"[train] resumed from round {latest}")
+                if self.rank0:
+                    print(f"[train] resumed from round {latest}")
 
     def batch(self, r: int):
         """Round ``r``'s batch: the round-robin slot cohort's tokens (the
@@ -211,6 +246,22 @@ class Run:
         )
 
 
+def contract_checked(round_fn, rules, param_count: int, fog_nodes: int):
+    """``round_fn`` with each round's collectives logged and held to the
+    paper's contract (``dist.assert_inter_client_contract``): one packed
+    delta all-reduce across the client ranks, one per tier with a fog
+    tier. Raises on a violation."""
+    from repro_torch.dist import CollectiveLog, assert_inter_client_contract
+
+    def checked(state, batch):
+        with CollectiveLog() as log:
+            out = round_fn(state, batch)
+        assert_inter_client_contract(log, rules, param_count, fog_nodes)
+        return out
+
+    return checked
+
+
 def host_metrics(metrics) -> dict:
     """The round's 0-d metric tensors as host numbers, in ONE copy."""
     import torch
@@ -224,10 +275,58 @@ def main(argv=None):
     from repro_torch.obs import tracker_from_spec
 
     args = parse_args(argv)
+    if args.compile_only:
+        raise NotImplementedError(
+            "--compile-only is the sharded dry run (launch/dryrun.py, "
+            "abstract_fl_state), not ported yet: ROADMAP.md queue 1, item 11(b)")
+    if args.devices:
+        return main_distributed(args)
+    if args.multi_pod:
+        raise ValueError("--multi-pod plans a mesh: give --devices N")
     run = Run(args)
     tracker = tracker_from_spec(args.track)
     with tracker:
         return _train_loop(run, tracker)
+
+
+def main_distributed(args):
+    """``--devices N``: the round on N spawned ranks; rank 0's final state,
+    on the host. A rank that fails fails the launcher."""
+    from repro_torch.device import resolve_device
+    from repro_torch.dist.meshes import plan_for
+    from repro_torch.dist.world import spawn
+
+    plan = plan_for(model_config(args), multi_pod=args.multi_pod,
+                    device_count=args.devices)
+    args.slots = plan.num_clients
+    args.clients = max(args.clients, 2 * args.slots)
+    print(f"[train] mesh plan: {plan.shape}", flush=True)
+    device = resolve_device(args.device)
+    return spawn(_rank_train, args.devices, args, backend=args.backend,
+                 device=device, timeout=24 * 3600.0)[0]
+
+
+def _rank_train(ctx, args):
+    """One rank of ``--devices``: its rules, its ``Run`` and the loop; rank
+    0 hands back its final state on the host."""
+    from repro_torch import tree
+    from repro_torch.dist import make_rules
+    from repro_torch.obs import NoopTracker, tracker_from_spec
+
+    rules = make_rules(None, model_config(args), multi_pod=args.multi_pod,
+                       device_count=ctx.world_size, backend=ctx.backend, device=ctx.device)
+    run = Run(args, rules=rules, device=ctx.device)
+    tracker = tracker_from_spec(args.track) if run.rank0 else NoopTracker()
+    with tracker:
+        state = _train_loop(run, tracker)
+    if not run.rank0:
+        return None
+    sched = dataclasses.replace(state.sched, **{
+        f.name: getattr(state.sched, f.name).cpu() for f in dataclasses.fields(state.sched)})
+    params, mu = tree.map(lambda x: None if x is None else x.cpu(),
+                          [state.params, state.server_mu])
+    return dataclasses.replace(state, params=params, server_mu=mu, sched=sched,
+                               server_count=state.server_count.cpu())
 
 
 def _train_loop(run: Run, tracker):
@@ -244,15 +343,16 @@ def _train_loop(run: Run, tracker):
             tracker.log({"event": "round", "arch": args.arch, "scale": args.scale, **m,
                          "round_wall_s": time.time() - t0}, step=r)
         run.step_telemetry(r, slot_ids)
-        print(
-            f"[round {r:4d}] loss={m['loss']:.4f} selected={m['num_selected']} "
-            f"cold={m['cold_starts']} latency={m['round_latency_ms']:.0f}ms "
-            f"energy={m['energy_j']:.1f}J "
-            + (f"retries={m['fault_retries']} lost={m['fault_lost']} "
-               f"skipped={m['round_skipped']} " if fl_cfg.faults is not None else "")
-            + f"({time.time() - t0:.2f}s)",
-            flush=True,
-        )
+        if run.rank0:
+            print(
+                f"[round {r:4d}] loss={m['loss']:.4f} selected={m['num_selected']} "
+                f"cold={m['cold_starts']} latency={m['round_latency_ms']:.0f}ms "
+                f"energy={m['energy_j']:.1f}J "
+                + (f"retries={m['fault_retries']} lost={m['fault_lost']} "
+                   f"skipped={m['round_skipped']} " if fl_cfg.faults is not None else "")
+                + f"({time.time() - t0:.2f}s)",
+                flush=True,
+            )
         if run.checkpointer and (r + 1) % args.ckpt_every == 0:
             run.checkpointer.save(r + 1, state)
     if run.checkpointer:

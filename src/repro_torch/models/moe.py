@@ -10,7 +10,7 @@
     dispatch / combine tensors: tokens past an expert's per-group capacity
     are dropped, as in the JAX function;
   * ``moe_ffn_ep``        — the expert-parallel mesh path: raises
-    (ROADMAP.md queue 1, item 11).
+    (ROADMAP.md queue 1, item 11(b)).
 
 Router convention (mixtral / moonlight): softmax over the expert logits
 in float32, top-k, the top-k probabilities renormalised to sum to 1. The
@@ -127,7 +127,7 @@ def moe_ffn_gshard(x: Array, w_router: Array, wg: Array, wu: Array, wd: Array,
     del expert_axis, group_axes, tp_axis
     if mesh is not None:
         raise NotImplementedError(
-            "moe_ffn_gshard on a mesh is not ported yet: ROADMAP.md queue 1, item 11 "
+            "moe_ffn_gshard on a mesh is not ported yet: ROADMAP.md queue 1, item 11(b) "
             "(dist/ -> torch.distributed) ports it"
         )
     b, s, d = x.shape
@@ -207,5 +207,5 @@ def moe_ffn_ep(x: Array, w_router: Array, wg: Array, wu: Array, wd: Array,
     """Expert-parallel MoE over a device mesh: not ported yet."""
     raise NotImplementedError(
         "moe_ffn_ep (expert parallelism over a mesh) is not ported yet: ROADMAP.md "
-        "queue 1, item 11 (dist/ -> torch.distributed) ports it"
+        "queue 1, item 11(b) ports it"
     )

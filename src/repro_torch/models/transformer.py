@@ -47,7 +47,7 @@ Array = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution context threaded through the apply functions. The mesh
-    fields belong to the distributed path (ROADMAP item 11); the port's
+    fields belong to the distributed path (ROADMAP item 11(b)); the port's
     single-device path reads only ``moe_impl``."""
 
     mesh: Any = None

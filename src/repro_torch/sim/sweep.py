@@ -29,7 +29,7 @@ package's ``cache`` option has no counterpart), and ``timings`` reports
 and ``disk_hits`` as 0. Seeds and numeric points run one after another: the
 JAX package's ``vmap`` over them, a batch axis here, is later work
 (ROADMAP's performance queue), as is sharding seeds over several cards
-(``devices`` > 1, ROADMAP queue 1, item 11).
+(``devices`` > 1, ROADMAP queue 1, item 11(b)).
 
 Typical use::
 
@@ -323,7 +323,7 @@ def run_sweep(
     if n_devices > 1:
         raise NotImplementedError(
             "sharding a sweep's seeds over several cards is not ported yet: "
-            "see ROADMAP.md, queue 1, item 11 (dist/)")
+            "see ROADMAP.md, queue 1, item 11(b)")
     grid = _grid(axes, cases)
     if tracker is not None and timings is None:
         timings = {}

@@ -48,6 +48,9 @@ def test_import_loads_no_jax_and_keeps_torch_state():
         "import repro_torch.checkpoint, repro_torch.launch.train\n"
         "import repro_torch.models.moe, repro_torch.serve.sweep, repro_torch.sim.faas\n"
         "import repro_torch.models.encdec, repro_torch.models.ssm, repro_torch.tools.profile_serve\n"
+        "import repro_torch.dist, repro_torch.dist.world, repro_torch.dist.selftest\n"
+        "import repro_torch.kernels.delta_pipeline.sharded_selftest\n"
+        "import repro_torch.kernels.delta_pipeline.fog_selftest\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "after = (torch.get_num_threads(), torch.get_default_dtype(), "

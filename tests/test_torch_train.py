@@ -1,7 +1,8 @@
 """The port's training launcher (``repro_torch.launch.train``) on the CPU at
 ``--scale tiny``: rounds, a checkpoint and ``--resume``, the tracker,
-the fault flags; and the entry points that belong to the distributed
-path (ROADMAP.md queue 1, item 11) raising."""
+the fault flags, ``--devices`` on a world of CPU ranks; and the entry
+points of the distributed path still to port (ROADMAP.md queue 1, item
+11(b)) raising."""
 import json
 
 import numpy as np
@@ -10,6 +11,7 @@ import torch
 from _threads import one_thread  # noqa: F401 (autouse)
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import tree
 from repro_torch.configs import get_reduced
 from repro_torch.fl import FLConfig, abstract_fl_state, init_fl_state, make_round_fn
 from repro_torch.launch import train
@@ -45,11 +47,31 @@ def test_train_fault_flags_and_fog(capsys):
     assert "retries=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--devices", "8"], ["--multi-pod"], ["--reduced"],
-                                  ["--compile-only"]])
+@pytest.mark.parametrize("flag", [["--compile-only"]])
 def test_mesh_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="item 11"):
         train.main(TINY + ["--rounds", "1"] + flag)
+
+
+@pytest.mark.parametrize("flags", [[], ["--fog-nodes", "2", "--pallas-agg"]],
+                         ids=["client-zero", "pod-fog"])
+def test_devices_runs_the_sharded_round(flags):
+    """``--devices 4``: the plan's 2 slots on 4 CPU ranks (client 2 × zero 2,
+    or pod 2 × client 1 × zero 2 with the pod axis as the fog tier), the
+    contract asserted on every rank each round; rank 0's state near the
+    single-process run of the same 2 slots: the reduced config trains in
+    bf16, and a slot's gradient is the mean of its two zero shares' bf16
+    gradients instead of the whole batch's, which moves bf16's last bits
+    (measured: 7e-4 at most on the momentum, parameters within
+    ``rtol=2e-2, atol=1e-3``)."""
+    argv = TINY + ["--rounds", "2", "--reduced"] + flags
+    mesh = ["--devices", "4"] + ["--multi-pod"] * ("--fog-nodes" in flags)
+    state = train.main(argv + mesh)
+    assert state.step == 2 and int(state.server_count) == 2
+    single = train.main(argv + ["--slots", "2"])
+    for a, b in zip(tree.leaves(state.params), tree.leaves(single.params)):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=2e-2, atol=1e-3)
 
 
 def test_full_scale_needs_the_card():
@@ -62,8 +84,6 @@ def test_distributed_entry_points_raise():
     fl = FLConfig(num_clients=8, slots=4)
     with pytest.raises(NotImplementedError, match="item 11"):
         abstract_fl_state(model, fl)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_round_fn(model, fl, rules=object())
 
 
 def test_state_defaults_to_the_card(monkeypatch):
