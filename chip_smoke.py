@@ -256,8 +256,8 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 start by spawn) on full-width llama3.2-1b in bf16, 2 ranks
                 of one slot each sharing the card through gloo (its
                 all-reduce stages CUDA tensors through host memory; NCCL
-                needs a card per rank), --pallas-agg, 2 rounds of gates
-                legacy and 1 of full (clip, int8, DP), (a) flat and (b)
+                needs a card per rank), --pallas-agg, a round of gates
+                legacy and one of full (clip, int8, DP), (a) flat and (b)
                 with the pod axis as a two-node fog tier: K4 once per
                 rank per round, K2 once per rank in the full round, K3
                 never; one all-reduce of the (P+2,) float32 pack a round,
@@ -272,11 +272,36 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 wall ms printed; then K4 alone at a rank's (1, P) bit for
                 bit its plain version, timed beside it, torch.mv,
                 torch.mul (at one row the same sum) and the byte bound;
+                tp: the tensor axes (python -m repro_torch.dist.selftest
+                --model-split, a child process), 2 ranks sharing the
+                card through gloo: (a) full-width llama3.2-1b in bf16,
+                (client 1, tp 2), one slot, 2 local steps of 4 x 128
+                tokens, --pallas-agg, gates legacy, legacy, full: each
+                rank holds its blocks of the parameters and momentum,
+                the server pass gathers whole rows over tp and runs K3
+                (the client axes span one rank) once per rank per round,
+                K2 once per rank in the full round, K4 never; no delta
+                all-reduce; every rank's gathered state equal; rank 0's
+                gathered parameters and momentum held against the
+                single-process round (the selftest's bf16 tensor-axis
+                bounds); (b) qwen2.5-14b at full width in bf16 (40 heads,
+                8 kv heads, head_dim 128, qkv bias, untied), (tp 1, sp
+                2), cut to TP_QWEN_LAYERS of its 48 layers: the loss and
+                gradient of one local step held against the
+                single-process step (STEP_TOL); per rank its peak bytes,
+                round or step ms, the tensor-axis collectives per local
+                step (count, bytes, wall ms), the server pass's gathers,
+                the delta all-reduces per round and the K2 / K3 / K4
+                launches printed; then K3 alone at a rank's (1, P) on its
+                momentum route, held against its plain version window by
+                window and timed beside it, torch.addmv and the byte
+                bound;
   5. result   — the kernels' JSON line (K3 and K4 with their async and
                 sweep launches beside the main paths', K2-K4 with the
-                train and dist phases' launches and times, K4's dist_*
-                times at (1, P)), nvidia-smi's line and, last, {"ok":
-                true, "device": {...}}.
+                train, dist and tp phases' launches and times, K4's
+                dist_* times at (1, P), K3's tp_* times at (1, P)),
+                nvidia-smi's line and, last, {"ok": true, "device":
+                {...}}.
 
 Each phase prints its seconds (``[phase] name=... seconds=...``).
 
@@ -2725,6 +2750,14 @@ def lm_kernel_times(torch, dp, cu, upd, base, mask, weights, mu) -> dict:
                                                   compression="none"), 10, 2),
         "k2": cuda_ms(lambda i: cu.delta_sq_norms_cuda(upd), 10, 2),
     }
+    # one PyTorch call of each function on the same buffer: the weighted
+    # sum into the base, one fog's weighted sum, the rows' squared norms
+    w = (mask.float() * weights) / torch.sum(mask.float() * weights)
+    lib = {
+        "k3": cuda_ms(lambda i: torch.addmv(base, upd.t(), w, out=out), 10, 2),
+        "k4": cuda_ms(lambda i: torch.mv(half.t(), dm, out=out4), 10, 2),
+        "k2": cuda_ms(lambda i: torch.linalg.vecdot(upd, upd, dim=1), 10, 2),
+    }
     b3 = 4 * (c * p + 4 * p + c)  # deltas, base, mu in, out, mu out, weights
     b4 = 4 * (c // 2 * p + p + c // 2)
     b2 = 4 * (c * p + c)
@@ -2732,7 +2765,8 @@ def lm_kernel_times(torch, dp, cu, upd, base, mask, weights, mu) -> dict:
     res = {}
     for k, b in (("k3", b3), ("k4", b4), ("k2", b2)):
         bound = max(b / HBM_BYTES_PER_S, ops[k] / FP32_FLOP_PER_S) * 1e3
-        res[k] = dict(ms=t[k], bytes=b, bound_ms=bound, share_of_bound=bound / t[k],
+        res[k] = dict(ms=t[k], library_ms=lib[k], bytes=b, bound_ms=bound,
+                      share_of_bound=bound / t[k],
                       bound_by="bytes" if b / HBM_BYTES_PER_S >= ops[k] / FP32_FLOP_PER_S
                       else "operations")
     return res
@@ -2885,20 +2919,20 @@ def phase_train(torch, smi) -> dict:
 # memory; NCCL refuses two ranks on one card). Run as a child process of
 # this one: the ranks start with ``spawn``, this process has CUDA set up.
 DIST_ARGV = ["-m", "repro_torch.dist.selftest", "--arch", "llama3.2-1b", "--scale", "full",
-             "--devices", "2", "--zero", "1", "--pallas-agg", "--gates", "legacy,legacy,full",
+             "--devices", "2", "--zero", "1", "--pallas-agg", "--gates", "legacy,full",
              "--seq-len", "128", "--local-steps", "2",
              "--device", "cuda", "--backend", "gloo", "--check", "--json"]
 DIST_RUNS = (("a: flat, client 2", []), ("b: fog 2 (pod 2 x client 1)", ["--fog-nodes", "2"]))
 DIST_TIMEOUT_S = 420
 
 
-def run_dist(extra, state_dir) -> dict:
+def run_dist(extra, state_dir, argv=DIST_ARGV) -> dict:
     """One ``dist.selftest`` child; its JSON result (it exits non-zero, and
     this raises, if a rank fails or a check does not hold)."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, *DIST_ARGV, *extra, "--state-dir", str(state_dir)],
+    proc = subprocess.run([sys.executable, *argv, *extra, "--state-dir", str(state_dir)],
                           capture_output=True, text=True, cwd=ROOT, env=env,
                           timeout=DIST_TIMEOUT_S)
     lines = proc.stdout.strip().splitlines()
@@ -2942,7 +2976,7 @@ def k4_per_rank(torch, cu, dp, p) -> dict:
 def phase_dist(torch, smi) -> dict:
     """The client-sharded LM round (``dist.selftest``): llama3.2-1b at full
     width and depth in bf16 on 2 ranks of one slot each, ``--pallas-agg``,
-    2 rounds of gates legacy then 1 of full (clip, int8, DP, FedAvgM);
+    a round of gates legacy then one of full (clip, int8, DP, FedAvgM);
     (a) flat, (b) the pod axis as a two-node fog tier. Gates: every check
     of the selftest (the contract on every rank each round, the replicated
     state, rank 0's parameters within one bf16 ulp and momentum within
@@ -3007,6 +3041,143 @@ def phase_dist(torch, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": totals, "k4": k4}
+
+
+# ---- the tensor axes: dist.selftest --model-split on two ranks ------------ #
+# Two ranks share the card through gloo, as in phase "dist". (a) runs the
+# whole round with the parameters split over tp; (b) one local step of a
+# 48-layer config with head_dim split over sp, its depth cut: every rank
+# draws the whole tree before it keeps its blocks, and the single-process
+# reference holds the whole tree and its gradient.
+TP_ARGV = ["-m", "repro_torch.dist.selftest", "--devices", "2", "--zero", "1",
+           "--seq-len", "128", "--device", "cuda", "--backend", "gloo", "--check", "--json"]
+TP_QWEN_LAYERS = 4
+TP_RUNS = (
+    ("a: llama3.2-1b, tp 2", ["--arch", "llama3.2-1b", "--scale", "full", "--model-split",
+                              "2,1", "--pallas-agg", "--gates", "legacy,legacy,full",
+                              "--local-steps", "2"]),
+    ("b: qwen2.5-14b, sp 2, one step", ["--arch", "qwen2.5-14b", "--scale", "full",
+                                        "--model-split", "1,2", "--mode", "step",
+                                        "--layers", str(TP_QWEN_LAYERS)]),
+)
+
+
+def k3_per_rank(torch, dp, cu, p) -> dict:
+    """K3 on its momentum route at a tensor-parallel rank's (1, P) (one
+    slot; the client axes span one rank), on the card alone: held
+    against its plain version window by window, timed beside it, the
+    byte bound (the row, base and momentum read, the model and momentum
+    written) and ``torch.addmv`` of the same weighted sum into the base."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    upd = torch.randn((1, p), generator=gen, device="cuda").mul_(1e-3)
+    base = torch.randn((p,), generator=gen, device="cuda")
+    mu = torch.randn((p,), generator=gen, device="cuda").mul_(1e-3)
+    mask = torch.ones((1,), dtype=torch.bool, device="cuda")
+    weights = torch.full((1,), 123.0, device="cuda")
+    kw = dict(lr=1.0, momentum=mu, server_optimizer="fedavgm", server_momentum=0.9,
+              aggregator="fedavg", trim_fraction=0.1)
+    outs = dp.delta_pipeline_apply(upd, base, mask, weights, lr=1.0, momentum=mu,
+                                   server_optimizer="fedavgm", server_momentum=0.9)
+    held = hold_k3_momentum(torch, dp, dict(args=(upd, base, mask, weights), kw=kw, outs=outs))
+    del outs
+    wn, cnt, pre, seg, tab = cu.pipeline_rows(
+        upd, mask, weights, None, 0.0, 0.1, clip_norm=0.0, compression="none",
+        topk_fraction=0.05, seg_sizes=None, aggregator="fedavg")
+    out, mu2 = torch.empty_like(base), torch.empty_like(mu)
+
+    def k3(i):
+        cu.launch_pipeline(upd, base, wn, cnt, pre, seg, tab, None, mu, out, mu2, lr=1.0,
+                           server_momentum=0.9, compression="none", aggregator="fedavg",
+                           server_optimizer="fedavgm")
+
+    col, w = upd.t(), weights / weights
+    nbytes = 4 * (p + 4 * p + 1)
+    ops = 2 * (p + 2 * p)
+    res = dict(
+        shape=f"(1, {p})", ms=cuda_ms(k3, 10, 2),
+        plain_ms=cuda_ms(lambda i: dp.delta_pipeline_ref(
+            upd, base, mask, weights, lr=1.0, momentum=mu, server_optimizer="fedavgm",
+            server_momentum=0.9), 1, 1),
+        library_ms=cuda_ms(lambda i: torch.addmv(base, col, w, out=out), 10, 2),
+        bytes=nbytes, bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOP_PER_S
+        else "operations",
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S) * 1e3,
+        max_abs_err=held["max_abs_err"],
+    )
+    del upd, base, mu, out, mu2, col
+    return res
+
+
+def phase_tp(torch, smi) -> dict:
+    """The tensor axes (``dist.selftest --model-split``, see the module
+    docstring's phase 4 "tp"): (a) the llama round over tp 2, (b) one
+    qwen2.5-14b step over sp 2; then K3 at a rank's (1, P). Returns the
+    K2 / K3 / K4 launches of (a) and K3's times."""
+    import shutil
+
+    from repro_torch.kernels import delta_pipeline as dp
+    from repro_torch.kernels.delta_pipeline import delta_pipeline as cu
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_dir = ROOT / "build" / "tp_states"
+    totals = {"delta_pipeline_partial": 0, "delta_sq_norms": 0, "delta_pipeline_apply": 0}
+    p = None
+    for name, extra in TP_RUNS:
+        shutil.rmtree(state_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        try:
+            res = run_dist(extra, state_dir, TP_ARGV)
+        finally:
+            shutil.rmtree(state_dir, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        check(res["ok"], f"tp {name}: selftest not ok")
+        check(res["replicated"], f"tp {name}: the ranks' gathered states differ")
+        check(all(math.isfinite(x) for x in res["losses"]), f"tp {name}: loss not finite")
+        say("tp", run=repr(name), plan=res["plan"]["shape"], layers=res["layers"],
+            params=res["param_count"], dtype=res["dtype"])
+        if res.get("mode") == "step":
+            say("tp", run=repr(name), cut=f"{res['layers']} of 48 layers", loss=res["losses"][0],
+                step_ms=[round(x, 1) for x in res["step_ms"]], peak_bytes=res["peak_bytes"],
+                tensor_axis_per_step=res["tensor_axis"], check=res["check"],
+                world_s=round(res["world_s"], 1), reference_s=round(res["reference_s"], 1),
+                child_s=round(wall, 1), card=repr(smi))
+            continue
+        gates = res["gates"]
+        check(all(n > 0 for n in res["participation"]), f"tp {name}: no slot took part")
+        for rank, rounds in enumerate(res["launches"]):
+            for g, ln in zip(gates, rounds):
+                want = dict(delta_pipeline_apply=1, delta_pipeline_partial=0,
+                            delta_sq_norms=1 if g == "full" else 0)
+                check(ln == want, f"tp {name}: rank {rank} launched {ln}, want {want}")
+                for k, v in ln.items():
+                    totals[k] += v
+        check(all(ops == [] for r in res["delta_all_reduces"] for ops in r),
+              f"tp {name}: delta all-reduces with one client rank {res['delta_all_reduces']}")
+        check(all(rec["per_local_step"]["count"] > 0 for r in res["tensor_axis"] for rec in r),
+              f"tp {name}: no tensor-axis collective in local training")
+        p = res["param_count"]
+        say("tp", run=repr(name), gates=gates, losses=[round(x, 5) for x in res["losses"]],
+            collectives=res["collectives"], world_s=round(res["world_s"], 1),
+            reference_s=round(res["reference_s"], 1), child_s=round(wall, 1), card=repr(smi))
+        for rank, rounds in enumerate(res["tensor_axis"]):
+            say("tp", run=repr(name), rank=rank, peak_bytes=res["peak_bytes"][rank],
+                round_ms=[round(x, 1) for x in res["round_ms"][rank]],
+                launches=res["launches"][rank],
+                delta_all_reduces_per_round=[len(o) for o in res["delta_all_reduces"][rank]],
+                per_local_step=[r["per_local_step"] for r in rounds],
+                gather=[{k: r["gather"][k] for k in ("count", "bytes", "ms")} for r in rounds])
+        for held in res["check"]:
+            say("tp", run=repr(name), round=held["round"], gates=held["gates"],
+                params=held["params"], server_mu=held.get("server_mu"),
+                metric_diffs={k: v for k, v in held["metric_diffs"].items() if v})
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3 = k3_per_rank(torch, dp, cu, p)
+    say("tp", kernel="delta_pipeline_apply", card=repr(smi), **k3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": totals, "k3": k3}
 
 
 # ---- the MoE serving slice: moonshot-v1-16b-a3b ------------------------ #
@@ -3836,6 +4007,7 @@ def main() -> int:
         kernels[name]["train_launches"] = trn["launches"][name]
         kernels[name]["train_ms"] = trn["times"][key]["ms"]
         kernels[name]["train_bound_ms"] = trn["times"][key]["bound_ms"]
+        kernels[name]["train_library_ms"] = trn["times"][key]["library_ms"]
 
     # the client-sharded LM round on two ranks sharing the card (gloo): K4
     # once per rank per round, K2 in the clipped round
@@ -3848,6 +4020,18 @@ def main() -> int:
     for key in ("ms", "plain_ms", "library_ms", "library_mul_ms", "bound_ms"):
         k4[f"dist_{key}"] = dst["k4"][key]
     k4["dist_shape"] = dst["k4"]["shape"]
+
+    # the tensor axes: two ranks holding their blocks of the parameters, K3
+    # once per rank per round on the gathered rows, K2 in the clipped round
+    t0 = time.perf_counter()
+    tpr = phase_tp(torch, smi)
+    say("phase", name="tp", seconds=time.perf_counter() - t0)
+    for name in ("delta_pipeline_partial", "delta_sq_norms", "delta_pipeline_apply"):
+        kernels[name]["tp_launches"] = tpr["launches"][name]
+    k3 = kernels["delta_pipeline_apply"]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):
+        k3[f"tp_{key}"] = tpr["k3"][key]
+    k3["tp_shape"] = tpr["k3"]["shape"]
 
     # 5. result: K1 to K7
     print(json.dumps({"kernels": [kernels[name] for name in kernel_counters()]}), flush=True)

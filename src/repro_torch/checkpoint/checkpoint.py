@@ -17,6 +17,11 @@ Layout:  <dir>/step_<N:08d>/shard_0.npz  + manifest.json (journal)
     resumes from the last good round (``launch/train.py --resume``).
   * async: ``AsyncCheckpointer`` copies the state to host memory
     synchronously and writes it on a background thread.
+  * rank-sharded: a state whose parameters and momentum are a rank's
+    tensor-parallel blocks is saved whole (``fl.state.whole_state``
+    gathers it over the model group; one rank writes), so the file is
+    the single-process one; :func:`restore_rank` reads it whole on the
+    host and keeps this rank's blocks.
 """
 from __future__ import annotations
 
@@ -140,6 +145,29 @@ def restore(directory: str, step: int, like: Any) -> Any:
     path = os.path.join(directory, f"step_{step:08d}", "shard_0.npz")
     with np.load(path) as data:
         return _rebuild(like, data)
+
+
+def restore_rank(directory: str, step: int, like, tp) -> Any:
+    """Restore a whole ``FLState`` checkpoint into a rank's state ``like``
+    whose parameters and momentum are its blocks under ``tp`` (a
+    ``dist.tensor_parallel.TensorParallel``; None: :func:`restore`): the
+    whole trees are read on the host, then this rank's blocks go to the
+    blocks' device."""
+    if tp is None:
+        return restore(directory, step, like)
+    from repro_torch import tree
+    from repro_torch.fl.state import rank_state
+
+    def host(local):
+        return tree.unflatten(local, [
+            torch.empty(tuple(d.shape), dtype=x.dtype)
+            for x, d in zip(tree.leaves(local), tree.leaves(tp.decls))])
+
+    mu = like.server_mu
+    whole = dataclasses.replace(like, params=host(like.params),
+                                server_mu=None if mu is None else host(mu))
+    device = tree.leaves(like.params)[0].device
+    return rank_state(restore(directory, step, whole), tp, device)
 
 
 class AsyncCheckpointer:

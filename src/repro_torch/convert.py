@@ -131,3 +131,38 @@ def fl_state_from_jax(cfg, state, device=None):
         rng=np.array(_get(state, "rng"), dtype=np.uint32),
         step=int(np.asarray(_get(state, "step"))),
     )
+
+
+def shard_params(cfg, params, rules, device=None):
+    """The JAX package's LM parameter tree (numpy leaves) -> this rank's
+    blocks under mesh ``rules`` (``ShardingRules.tensor_specs``), on the
+    CUDA card unless ``device`` names another."""
+    from repro_torch.models.api import decls as family_decls
+
+    whole = model_params_from_jax(cfg, params, device="cpu")
+    blocks = rules.shard_tree(whole, family_decls(cfg))
+    device = resolve_device(device)
+    return _tree_to(blocks, device)
+
+
+def whole_params(cfg, blocks, rules):
+    """The inverse of :func:`shard_params`: ``blocks[j]``, member j's blocks
+    (``ShardingRules.member_coords``), -> the whole tree as numpy arrays
+    in the JAX package's layout (bf16 leaves widened to float32)."""
+    from repro_torch.models.api import decls as family_decls
+
+    whole = rules.assemble([_tree_to(b, "cpu") for b in blocks], family_decls(cfg))
+    return _tree_numpy(whole)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _tree_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -19,7 +19,16 @@ The readers are the JAX package's, on that ledger:
   * :func:`inter_client_all_reduces`: delta-sized all-reduces crossing
     the client axes;
   * :func:`assert_inter_client_contract`: exactly ONE such all-reduce a
-    round, or with a fog tier one per tier.
+    round, or with a fog tier one per tier; and on a plan with a model
+    split, no collective over the tensor axes whose group spans two
+    client coordinates;
+  * :func:`tensor_axis_ops` / :func:`tensor_axis_summary`: the
+    collectives of the tensor-parallel layers (groups confined to the
+    model axes): count, bytes and wall ms, per local step.
+
+Each op carries the round phase it ran in (:func:`labelled`, which the
+round's phases set), so a reader can tell the layers' collectives in
+local training from the server pass's gathers.
 
 Every rank runs the same program, so one rank's ledger is the program's;
 a group's ranks map to mesh coordinates row-major, as JAX's partition
@@ -28,6 +37,7 @@ attribute at call time (as the port does), not a name imported earlier.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -57,6 +67,20 @@ class CollectiveOp:
     bytes: float  # bytes of the result tensor
     groups: list | None  # [[global ranks of the group]]; None = world
     ms: float | None = None  # wall ms (timed logs only)
+    phase: str | None = None  # the round phase it ran in (``labelled``)
+
+
+_LABEL: list = [None]  # the innermost ``labelled`` name
+
+
+@contextlib.contextmanager
+def labelled(name: str):
+    """Record the collectives made inside under the phase ``name``."""
+    prev, _LABEL[0] = _LABEL[0], name
+    try:
+        yield
+    finally:
+        _LABEL[0] = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,7 +145,7 @@ class CollectiveLog:
                 torch.cuda.synchronize(tensor.device)
             ms = (time.perf_counter() - t0) * 1e3 if self.timed else None
             self.ops.append(CollectiveOp(kind, float(tensor.numel() * tensor.element_size()),
-                                         [_group_ranks(group)], ms))
+                                         [_group_ranks(group)], ms, _LABEL[0]))
             return out
 
         return wrapper
@@ -164,12 +188,20 @@ def count_axis_crossing(
     of those axes: this is how the fog contract tells a tier-local
     reduction from one flat all-reduce spanning both tiers.
     """
+    return sum(1 for op in log.ops
+               if op.kind in kinds and op.bytes >= min_bytes
+               and _crossing(op, mesh, axes, not_axes))
+
+
+def _crossing(op, mesh, axes, not_axes=()) -> bool:
+    """Whether ``op``'s group crosses ``axes`` and stays within slices of
+    ``not_axes`` (see :func:`count_axis_crossing`)."""
     names = list(mesh.axis_names)
     sizes = [int(mesh.shape[a]) for a in names]
     idxs = [names.index(a) for a in axes if a in names]
     not_idxs = [names.index(a) for a in not_axes if a in names]
     if not idxs:
-        return 0
+        return False
     total = math.prod(sizes)
 
     def crosses(groups, which) -> bool:
@@ -182,13 +214,39 @@ def count_axis_crossing(
                     return True
         return False
 
-    return sum(
-        1
-        for op in log.ops
-        if op.kind in kinds
-        and op.bytes >= min_bytes
-        and crosses(op.groups, idxs)
-        and not (not_idxs and crosses(op.groups, not_idxs))
+    return crosses(op.groups, idxs) and not (not_idxs and crosses(op.groups, not_idxs))
+
+
+ALL_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "collective-broadcast")
+
+
+def _tensor_axes(rules) -> tuple[str, ...]:
+    """The plan's model axes of extent > 1 (none for a plan without them)."""
+    return tuple(a for a in getattr(rules.plan, "model_axes", ())
+                 if int(rules.mesh.shape.get(a, 1)) > 1)
+
+
+def tensor_axis_ops(log, rules, phase: str | None = None) -> list:
+    """The ops whose group crosses the plan's tensor axes and no other
+    (the tensor-parallel layers' copies, reduces and gathers, and the
+    server pass's gathers), of ``phase`` when given."""
+    axes = _tensor_axes(rules)
+    data = tuple(a for a in rules.mesh.axis_names if a not in axes)
+    return [op for op in log.ops if axes and (phase is None or op.phase == phase)
+            and _crossing(op, rules.mesh, axes, data)]
+
+
+def tensor_axis_summary(log, rules, steps: int, phase: str = "local_training") -> dict:
+    """The tensor-axis collectives of ``phase`` per local step (``steps``:
+    the rank's slots × local steps): count, bytes and wall ms (None for
+    an untimed log), and the count by kind."""
+    ops = tensor_axis_ops(log, rules, phase)
+    ms = [op.ms for op in ops]
+    return dict(
+        count=len(ops) / steps,
+        bytes=sum(op.bytes for op in ops) / steps,
+        ms=(sum(ms) / steps) if ops and None not in ms else None,
+        by_kind={k: v / steps for k, v in Counter(op.kind for op in ops).items()},
     )
 
 
@@ -218,7 +276,20 @@ def assert_inter_client_contract(
     With ``fog_nodes > 1`` the contract is per tier: ONE delta-sized
     all-reduce confined to the edge axes (zero when the edge suffix spans
     one rank) plus ONE crossing the fog axes. Returns (edge + fog count,
-    delta_bytes)."""
+    delta_bytes).
+
+    On a plan with a model split it also holds that no collective over the
+    tensor axes has a group spanning two client coordinates (each
+    client shard's model group works on its own)."""
+    axes = _tensor_axes(rules)
+    if axes:
+        spanning = sum(1 for op in log.ops
+                       if _crossing(op, rules.mesh, axes)
+                       and _crossing(op, rules.mesh, rules.plan.client_axes))
+        if spanning:
+            raise AssertionError(
+                f"tensor-axis collective contract violated: {spanning} collective(s) "
+                f"over {axes} span two client coordinates")
     count, delta_bytes = inter_client_all_reduces(log, rules, param_count)
     ways = getattr(rules, "client_ways", None)
     if ways is None:

@@ -10,7 +10,8 @@ The round (fl/round.py) distributes over four kinds of axes:
              collective that crosses it
     zero     intra-slot data axis: each slot's local batch splits here
     model    two tensor axes: ("expert", "tp") for MoE archs, ("tp", "sp")
-             otherwise (planned; not executed in the port yet)
+             otherwise; the DENSE family's round executes tp and sp
+             (``dist.tensor_parallel``), the expert axis is not ported
 
 A :class:`MeshPlan` is pure arithmetic, the JAX package's verbatim;
 :meth:`MeshPlan.build_mesh` is the only call that touches
@@ -226,13 +227,24 @@ class MeshPlan:
     def device_count(self) -> int:
         return math.prod(self.axis_sizes)
 
+    @property
+    def model_ways(self) -> int:
+        return math.prod(self.model_split)
+
     def axis_sets(self) -> list[tuple[str, ...]]:
         """The axis sets the round reduces over, in a fixed order: every
         contiguous run of the client axes (the flat combine and each fog
-        tier's prefix / edge suffix), then zero."""
+        tier's prefix / edge suffix), then zero. A plan with a model split
+        adds each model axis, the two together (the tensor-parallel
+        layers and the server pass's gathers) and the data axes (the
+        loss, summed over the slots once, not once per model rank)."""
         ca = self.client_axes
         runs = [ca[i:j] for i in range(len(ca)) for j in range(i + 1, len(ca) + 1)]
-        return runs + [("zero",)]
+        sets = runs + [("zero",)]
+        if self.model_ways > 1:
+            a, b = self.model_axes
+            sets += [(a,), (b,), (a, b), self.data_axes]
+        return sets
 
     def build_mesh(self, backend: str = "gloo", device=None) -> Mesh:
         """This rank's :class:`Mesh`, with a process group for every axis

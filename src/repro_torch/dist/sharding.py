@@ -24,17 +24,25 @@ Rule table (production plans; size-1 axes drop out automatically):
     expert_mlp  tp
     layers / None   replicated
 
-In the port's executed plans (``plan_for(device_count=N)``) only the
-client and zero axes act on tensors: the round keeps the parameters
-replicated (FSDP of ``embed`` over zero is queued), so the specs are the
-plan's arithmetic, held against the JAX package. What acts is
-:meth:`ShardingRules.slot_range` (which slots a rank trains) and
-:meth:`ShardingRules.batch_range` (its zero share of a slot's batch).
+What acts on tensors: :meth:`ShardingRules.slot_range` (which slots a
+rank trains) and :meth:`ShardingRules.batch_range` (its zero share of a
+slot's batch) on the client and zero axes; and, on a plan with a model
+split (the production plans, or a ``MeshPlan`` built with one), the
+``tp`` / ``sp`` entries of :meth:`ShardingRules.tensor_specs`: each
+rank holds its block of every parameter and server-momentum leaf
+(:meth:`ShardingRules.shard_tree`, :func:`spec_slices`), and the DENSE
+round computes on those blocks (``dist.tensor_parallel``). A dim the
+axis does not divide stays whole on every rank of that axis. ``zero``
+stays off the parameters (FSDP of ``embed`` over zero is queued), so
+the tensor specs are ``param_specs(..., fsdp=False)``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
+
+import torch
 
 from repro_torch import tree
 from repro_torch.dist.meshes import MeshPlan, plan_for
@@ -54,6 +62,35 @@ LOGICAL_RULES: dict[str, tuple[str, ...]] = {
     "experts": ("expert",),
     "expert_mlp": ("tp",),
 }
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """A spec entry's mesh axes: () for None, one name, or the tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_slices(spec, shape, sizes: Mapping[str, int],
+                coords: Mapping[str, int]) -> tuple[slice, ...]:
+    """The block of a leaf of ``shape`` that the rank at ``coords`` holds
+    under ``spec``: per dim, the contiguous ``1/ways`` share at the rank's
+    row-major index over the entry's axes (the whole dim for None)."""
+    out = []
+    for entry, n in zip(spec, shape):
+        idx, ways = 0, 1
+        for a in entry_axes(entry):
+            idx = idx * sizes[a] + coords[a]
+            ways *= sizes[a]
+        per = n // ways
+        out.append(slice(idx * per, (idx + 1) * per))
+    return tuple(out)
+
+
+def local_shape(spec, shape, sizes: Mapping[str, int]) -> tuple[int, ...]:
+    """A leaf's block shape under ``spec``."""
+    return tuple(n // math.prod(sizes[a] for a in entry_axes(e))
+                 for e, n in zip(spec, shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +199,11 @@ class ShardingRules:
         ``stacked=True`` prepends the per-slot replica axis (sharded over
         ``plan.client_axes``). ``fsdp`` overrides ``plan.fsdp_params``
         (serving passes False: no ZeRO sharding of weights)."""
+        return tree.unflatten(decls, self.spec_list(decls, stacked=stacked, fsdp=fsdp))
+
+    def spec_list(self, decls, *, stacked: bool = False, fsdp: bool | None = None) -> list:
+        """:meth:`param_specs` as a list in leaf order (a spec is a tuple,
+        which ``tree.leaves`` would flatten)."""
         use_fsdp = self.plan.fsdp_params if fsdp is None else fsdp
         client_entry = (
             self._as_spec_entry(self.plan.client_axes) if stacked else None
@@ -178,12 +220,83 @@ class ShardingRules:
             if stacked:
                 entries = [client_entry] + entries
             specs.append(tuple(entries))
-        return tree.unflatten(decls, specs)
+        return specs
 
     def opt_spec_tree(self, decls, *, stacked: bool = False):
         """Specs for one optimizer-moment tree (ZeRO moments shard exactly
         like the weights they track)."""
         return self.param_specs(decls, stacked=stacked, fsdp=True)
+
+    # ------------------------------------------------------------------ #
+    # The tensor axes: each rank's blocks of the parameters
+    # ------------------------------------------------------------------ #
+    @property
+    def tensor_axes(self) -> tuple[str, ...]:
+        """The plan's model axes of extent > 1."""
+        return self._present(self.plan.model_axes)
+
+    @property
+    def tensor_ways(self) -> int:
+        return math.prod(self._axis_size(a) for a in self.tensor_axes)
+
+    def tensor_specs(self, decls) -> list:
+        """The specs, in leaf order, the round holds the parameters and the
+        server momentum by (JAX ``fl_state_specs``' ``param_specs`` /
+        ``opt_spec_tree`` with ``zero`` off the parameters: FSDP is not
+        ported)."""
+        return self.spec_list(decls, fsdp=False)
+
+    def member_coords(self, j: int) -> dict[str, int]:
+        """Mesh coordinates of member ``j`` of this rank's model group (the
+        ranks that share its data coordinates, row-major over the tensor
+        axes, as ``dist.meshes.axis_groups`` orders them)."""
+        coords = dict(self.mesh.coords)
+        for a in reversed(self.tensor_axes):
+            coords[a] = j % self._axis_size(a)
+            j //= self._axis_size(a)
+        return coords
+
+    def block_slices(self, decls, coords: Mapping[str, int] | None = None) -> list:
+        """The slices of each leaf (in leaf order) that the rank at
+        ``coords`` (this rank by default) holds."""
+        coords = self.mesh.coords if coords is None else coords
+        return [spec_slices(spec, d.shape, self.mesh.shape, coords)
+                for spec, d in zip(self.tensor_specs(decls), tree.leaves(decls))]
+
+    def local_decls(self, decls):
+        """The declarations with each leaf's block shape."""
+        return tree.unflatten(decls, [
+            dataclasses.replace(d, shape=local_shape(spec, d.shape, self.mesh.shape))
+            for spec, d in zip(self.tensor_specs(decls), tree.leaves(decls))])
+
+    def shard_tree(self, full, decls, coords: Mapping[str, int] | None = None):
+        """The blocks of a full tree (tensors or numpy arrays shaped like
+        ``decls``) that the rank at ``coords`` holds, as contiguous
+        copies (a view would keep the whole leaf alive)."""
+        slices = self.block_slices(decls, coords)
+        out = []
+        for x, sl in zip(tree.leaves(full), slices):
+            b = x[sl]
+            out.append(b.clone(memory_format=torch.contiguous_format)
+                       if isinstance(b, torch.Tensor) else b.copy())
+        return tree.unflatten(full, out)
+
+    def assemble(self, blocks, decls):
+        """The inverse of :meth:`shard_tree`: ``blocks[j]`` is member j's
+        block tree (:meth:`member_coords`); a dim replicated over an axis
+        is taken from the first member that holds it."""
+        first = tree.leaves(blocks[0])
+        out = [torch.empty(d.shape, dtype=b.dtype, device=b.device)
+               for d, b in zip(tree.leaves(decls), first)]
+        seen = [set() for _ in out]
+        for j, blk in enumerate(blocks):
+            sl = self.block_slices(decls, self.member_coords(j))
+            for i, (x, s) in enumerate(zip(tree.leaves(blk), sl)):
+                key = tuple((q.start, q.stop) for q in s)
+                if key not in seen[i]:
+                    seen[i].add(key)
+                    out[i][s] = x
+        return tree.unflatten(decls, out)
 
     # ------------------------------------------------------------------ #
     # Batches
@@ -267,16 +380,18 @@ def make_rules(
     device_count: int | None = None,
     backend: str = "gloo",
     device=None,
+    plan: MeshPlan | None = None,
 ) -> ShardingRules:
     """Build the plan, this rank's mesh and the rules for one config.
 
-    ``mesh`` None builds the plan's mesh (``MeshPlan.build_mesh`` on the
-    initialized world, with ``backend`` and ``device``, None the CUDA
-    card); an existing mesh
-    must carry the plan's axis names."""
-    plan = plan_for(
-        cfg, multi_pod=multi_pod, device_count=device_count, zero=zero
-    )
+    ``plan`` None is ``plan_for(cfg, ...)``; a given ``MeshPlan`` (a model
+    split that only the production pool reaches, on a small world) is
+    used as it is. ``mesh`` None builds the plan's mesh
+    (``MeshPlan.build_mesh`` on the initialized world, with ``backend``
+    and ``device``, None the CUDA card); an existing mesh must carry the
+    plan's axis names."""
+    if plan is None:
+        plan = plan_for(cfg, multi_pod=multi_pod, device_count=device_count, zero=zero)
     if mesh is None:
         mesh = plan.build_mesh(backend, device)
     elif tuple(getattr(mesh, "axis_names", ())) != plan.axis_names:

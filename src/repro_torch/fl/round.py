@@ -52,14 +52,26 @@ rank's ``dist.meshes.Mesh``) the round runs on every rank of a
     rows, one packed all-reduce over the client group, per tier with a
     fog tier) when ``use_pallas_agg``; otherwise the plain per-rank
     partial sum takes the same single packed all-reduce;
-  * the loss is reduced with a scalar-sized all-reduce over the world.
+  * the loss is reduced with a scalar-sized all-reduce over the world
+    (over the data axes on a plan with a model split: once per slot).
 
-The state stays replicated: every rank computes the same new state.
-Median / trimmed and the attacks need every client's rows on one rank
-and raise under rules (ROADMAP.md item 11(b)).
+Without a model split the state stays replicated: every rank computes
+the same new state. With one (``tp`` / ``sp`` on the DENSE family,
+``dist.tensor_parallel``) each rank holds its blocks of the parameters
+and the server momentum (``ShardingRules.tensor_specs``) and trains on
+them through the tensor-parallel layer (``Runtime.tensor``); its slot's
+delta is its (C_local, P_local) columns. The server pass keeps the JAX
+round's ``shard_p=False`` layout: the delta rows, the base and the
+momentum are gathered over the model group into whole (C_local, P)
+rows in the single-process layout (phase ``gather``), the pass above
+runs on them unchanged (K3 when the client axes span one rank), and
+the rank keeps its blocks of the new parameters and momentum. Median /
+trimmed and the attacks need every client's rows on one rank and raise
+under rules (ROADMAP.md item 11(b), step 5).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -71,6 +83,8 @@ from repro_torch.core.scheduler import account_energy, schedule_round
 from repro_torch.core.selection import random_selection_mask
 from repro_torch.core.types import ClientTelemetry, SchedulerWeights, static_on
 from repro_torch.device import scalar
+from repro_torch.dist.collectives import labelled
+from repro_torch.dist.tensor_parallel import TensorParallel
 from repro_torch.fl import attacks as attacks_mod
 from repro_torch.fl import fog as fog_mod
 from repro_torch.fl.compression import apply_compression, wire_bytes_per_param
@@ -86,7 +100,7 @@ from repro_torch.sim.faults import config as faults_config
 from repro_torch.sim.faults import inject as faults_inject
 
 _NOT_UNDER_RULES = ("under mesh rules is not ported yet (it needs every client's rows "
-                    "on one rank): ROADMAP.md queue 1, item 11(b)")
+                    "on one rank): ROADMAP.md queue 1, item 11(b), step 5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +111,12 @@ class AttackConfig:
     replacement_scale: float = 10.0
 
 
+@contextlib.contextmanager
 def _phase(name: str):
-    """The ``train.<name>`` profiler range of a phase of the round."""
-    return profiler_range(f"train.{name}")
+    """The ``train.<name>`` profiler range of a phase of the round; the
+    collectives made in it carry ``name`` (``dist.collectives``)."""
+    with profiler_range(f"train.{name}"), labelled(name):
+        yield
 
 
 def _inner_optimizer(fl_cfg: FLConfig):
@@ -137,6 +154,12 @@ class _Layout:
     """Leaf order, shapes, dtypes and column offsets of a parameter tree in
     the fused (P,) / (C, P) layout (``tree.leaves`` order, the JAX
     package's flatten order)."""
+
+    @classmethod
+    def of_decls(cls, decls):
+        """The layout of a ``ParamDecl`` tree (shape-only leaves)."""
+        return cls(tree.map(lambda d: torch.empty(d.shape, dtype=getattr(torch, d.dtype),
+                                                  device="meta"), decls))
 
     def __init__(self, params):
         self.like = params
@@ -222,12 +245,16 @@ def make_round_fn(
     on the state's device."""
     c = fl_cfg.slots
     lo, hi = 0, c  # the slots this rank trains
+    tp = None  # this rank's tensor-parallel view (a plan with a model split)
     if rules is not None:
         if fl_cfg.aggregator != "fedavg":
             raise NotImplementedError(f"aggregator {fl_cfg.aggregator!r} {_NOT_UNDER_RULES}")
         if attack.kind != "none":
             raise NotImplementedError(f"attack {attack.kind!r} {_NOT_UNDER_RULES}")
         lo, hi = rules.slot_range(c)
+        tp = TensorParallel.from_rules(rules)
+        if tp is not None:
+            runtime = dataclasses.replace(runtime, tensor=tp)
         if fl_cfg.fog_nodes > 1 and rules.client_ways > 1:
             sharded_mod.split_fog_axes(rules.mesh, rules.plan.client_axes, fl_cfg.fog_nodes)
     zero = rules.zero_ways if rules is not None else 1
@@ -318,7 +345,11 @@ def make_round_fn(
         if rules is not None:
             # Σ over every rank's slots and zero shares, per microbatch
             per_mb = torch.sum(torch.stack([torch.stack(ls) for ls in last]), dim=0)
-            torch.distributed.all_reduce(per_mb)
+            if tp is None:
+                torch.distributed.all_reduce(per_mb)
+            elif rules.mesh.ways(rules.plan.data_axes) > 1:  # each slot once
+                torch.distributed.all_reduce(per_mb,
+                                             group=rules.mesh.group(rules.plan.data_axes))
             per_mb = per_mb / (c * zero)
             mean_loss = per_mb[0] if fl_cfg.microbatch <= 1 else (
                 torch.sum(per_mb) / fl_cfg.microbatch)
@@ -374,6 +405,18 @@ def make_round_fn(
             layout = _Layout(params0)
             buf, mean_loss = local_training(params0, model_batch, layout, dev)
 
+        # the model group's blocks -> whole rows, base and momentum (JAX
+        # shard_p=False: P whole within a client shard)
+        mu_on = (fl_cfg.server_optimizer in ("fedavgm", "fedadam")
+                 and state.server_mu is not None)
+        base_flat = mu_flat = None
+        if tp is not None:
+            with _phase("gather"):
+                buf = tp.gather_rows(buf)
+                base_flat = tp.gather_flat(params0)
+                mu_flat = tp.gather_flat(state.server_mu) if mu_on else None
+                layout = _Layout.of_decls(tp.decls)
+
         # ---- 3. deltas: clip → attack → compress ----------------------- #
         # Delta attacks land BETWEEN clip and compress, so on the kernel
         # path those two stages run here and the kernel runs unclipped.
@@ -418,10 +461,25 @@ def make_round_fn(
         # ---- 4+5. aggregate (Eq. 6) + server update -------------------- #
         with _phase("server"):
             if rules is not None:
-                new_params, new_mu = _sharded_server(
-                    fl_cfg, rules, layout, buf, deltas, params0, state.server_mu,
-                    slot_mask[lo:hi], slot_sizes[lo:hi], rd, r, dev)
-                del buf, deltas
+                if tp is None:
+                    base_flat = layout.flatten(params0, dev)
+                    mu_flat = layout.flatten(state.server_mu, dev) if mu_on else None
+                new_flat, new_mu_flat = _sharded_server(
+                    fl_cfg, rules, layout, buf, deltas, base_flat, mu_flat,
+                    slot_mask[lo:hi], slot_sizes[lo:hi], rd, r)
+                del buf, deltas, base_flat, mu_flat
+                new_mu = state.server_mu
+                if tp is not None:  # this rank's blocks of the new state
+                    new_params = tp.shard_flat(new_flat, params0)
+                    if new_mu_flat is not None:
+                        new_mu = tp.shard_flat(new_mu_flat, state.server_mu, flat=True)
+                else:
+                    new_params = layout.unflatten(new_flat)
+                    if new_mu_flat is not None:
+                        new_mu = tree.unflatten(state.server_mu, [
+                            new_mu_flat[off:off + n].view(shape)
+                            for off, n, shape, _ in layout.spans()])
+                del new_flat, new_mu_flat
                 new_count = state.server_count + 1
             elif use_kernel:
                 if deltas is not None:
@@ -536,22 +594,20 @@ def make_round_fn(
     return round_fn
 
 
-def _sharded_server(fl_cfg: FLConfig, rules, layout, buf, deltas, params0, mu,
-                    mask, sizes, rd, r: int, dev):
-    """The server pass under rules on this rank's (C_local, P) rows:
-    ``delta_pipeline_apply_sharded`` (K4, one packed all-reduce per tier)
-    with ``use_pallas_agg``, else the plain partial sum of the transformed
-    ``deltas`` through the same packed all-reduce and epilogue. Returns
-    (new params, new server momentum)."""
-    base_flat = layout.flatten(params0, dev)
+def _sharded_server(fl_cfg: FLConfig, rules, layout, buf, deltas, base_flat, mu_flat,
+                    mask, sizes, rd, r: int):
+    """The server pass under rules on this rank's (C_local, P) rows, the
+    fused (P,) base and momentum (None: no momentum):
+    ``delta_pipeline_apply_sharded`` (K4, one packed all-reduce per tier;
+    K3 when the client axes span one rank) with ``use_pallas_agg``, else
+    the plain partial sum of the transformed ``deltas`` through the same
+    packed all-reduce and epilogue. Returns the fused (new params, new
+    server momentum or None)."""
     seg = layout.sizes
     noise = None
     if fl_cfg.dp_sigma > 0:
         noise = fused_gaussian_noise(
             rd, fl_cfg.dp_sigma * (fl_cfg.clip_norm or 1.0), seg, round=r)
-    mu_flat = None
-    if fl_cfg.server_optimizer in ("fedavgm", "fedadam") and mu is not None:
-        mu_flat = layout.flatten(mu, dev)
     if deltas is not None:
         layout.write_rows(buf, deltas)
     epi = dict(dp_noise=noise, momentum=mu_flat, server_optimizer=fl_cfg.server_optimizer,
@@ -570,11 +626,7 @@ def _sharded_server(fl_cfg: FLConfig, rules, layout, buf, deltas, params0, mu,
             dm, m, layout.p, lambda out: torch.mv(buf.t(), dm, out=out))
         new_flat, new_mu_flat = sharded_mod.reduce_and_combine(
             packed, base_flat, fl_cfg.server_lr, **epi, **where)
-    new_mu = mu
-    if new_mu_flat is not None:
-        new_mu = tree.unflatten(mu, [new_mu_flat[off:off + n].view(shape)
-                                     for off, n, shape, _ in layout.spans()])
-    return layout.unflatten(new_flat), new_mu
+    return new_flat, new_mu_flat
 
 
 def _server_update(fl_cfg: FLConfig, params0, agg, mu, count):

@@ -137,9 +137,12 @@ def init_fl_state(model, fl_cfg: FLConfig, key, server_mu: bool | None = None,
     do not: see ``convert.fl_state_from_jax``).
 
     Under mesh ``rules`` (``dist.sharding.ShardingRules``) every rank
-    calls this with the same key and gets the same replicated global
-    state, on its own device (``rules.mesh.device`` unless ``device``
-    names one); the slots must divide over the client ranks."""
+    calls this with the same key and gets the same global state, on its
+    own device (``rules.mesh.device`` unless ``device`` names one); the
+    slots must divide over the client ranks. On a plan with a model split
+    the parameters and the server momentum are this rank's blocks of it
+    (``ShardingRules.tensor_specs``, JAX ``fl_state_specs`` with ``zero``
+    off the parameters); the rest stays replicated."""
     if rules is not None:
         rules.slot_range(fl_cfg.slots)  # raises unless the slots divide
         device = rules.mesh.device if device is None else device
@@ -148,7 +151,7 @@ def init_fl_state(model, fl_cfg: FLConfig, key, server_mu: bool | None = None,
     k_params, k_rng = split_key(key, 2)
     gen = torch.Generator(device=device)
     gen.manual_seed((int(k_params[0]) << 32) | int(k_params[1]))
-    params = model.init(gen)
+    params = model.init(gen, rules)
     use_mu = (
         fl_cfg.server_optimizer in ("fedavgm", "fedadam")
         if server_mu is None
@@ -165,6 +168,35 @@ def init_fl_state(model, fl_cfg: FLConfig, key, server_mu: bool | None = None,
         rng=k_rng,
         step=0,
     )
+
+
+def whole_state(state: FLState, tp) -> FLState:
+    """A rank's state with its parameter and momentum blocks gathered over
+    its model group into whole trees (a collective: every rank of the
+    group calls it); ``tp`` None returns ``state``."""
+    if tp is None:
+        return state
+    mu = state.server_mu
+    return dataclasses.replace(state, params=tp.gather_tree(state.params),
+                               server_mu=None if mu is None else tp.gather_tree(mu))
+
+
+def rank_state(state: FLState, tp, device=None) -> FLState:
+    """The inverse of :func:`whole_state`: this rank's blocks of a whole
+    state's parameters and momentum, moved to ``device`` when given (the
+    momentum as views of one flat buffer, as ``init_fl_state`` keeps
+    it)."""
+    if tp is None:
+        return state
+    params = tp.shard_tree(state.params)
+    if device is not None:
+        params = tree.map(lambda x: x.to(device), params)
+    mu = None
+    if state.server_mu is not None:
+        mu = flat_zeros_like(params)
+        for dst, src in zip(tree.leaves(mu), tree.leaves(tp.shard_tree(state.server_mu))):
+            dst.copy_(src)
+    return dataclasses.replace(state, params=params, server_mu=mu)
 
 
 def abstract_fl_state(model, fl_cfg: FLConfig) -> FLState:

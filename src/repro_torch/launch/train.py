@@ -15,10 +15,15 @@ side through the delta-pipeline kernels: K3 once a round, or K4 per fog
 with ``--fog-nodes``; K2 with a clip norm.
 
 ``--devices N`` runs the client-sharded round on N ranks of one host
-(``dist.world``), on the scaled plan ``plan_for(device_count=N)``
-(client × zero, ``--multi-pod``: pod × client × zero, the pod axis the
-fog tier), which sets the slots to the plan's client count; the plan is
-printed first. Every rank builds the same replicated state and data,
+(``dist.world``), on the plan of :func:`mesh_plan`: the scaled plan
+``plan_for(device_count=N)`` (client × zero, ``--multi-pod``: pod ×
+client × zero, the pod axis the fog tier), or at 256 devices (512 with
+``--multi-pod``) the production plan with its tensor axes, as the JAX
+launcher builds them; it sets the slots to the plan's client count, and
+the plan is printed first. A plan with a model split runs the DENSE
+family's tensor-parallel round (each rank its parameter blocks;
+checkpoints are saved whole, gathered over each model group, and each
+rank restores its blocks). Every rank builds the same replicated state and data,
 trains its slots and takes part in the round's one packed all-reduce
 (asserted on every rank each round from its ``dist.CollectiveLog``);
 rank 0 prints, tracks and checkpoints, and ``main`` returns its final
@@ -136,6 +141,19 @@ def fault_config_from_args(args):
     )
 
 
+def mesh_plan(cfg, devices: int, multi_pod: bool = False):
+    """The plan of ``--devices`` (JAX ``launch/train.py:164–176``): the
+    production plan (``plan_for`` with its 16-way model split) at 256
+    devices a pod, 512 with ``multi_pod``; else the scaled host plan,
+    client × zero only."""
+    from repro_torch.dist.meshes import DATA_PER_POD, MODEL_PER_POD, plan_for
+
+    pods = 2 if multi_pod else 1
+    if devices == DATA_PER_POD * MODEL_PER_POD * pods:
+        return plan_for(cfg, multi_pod=multi_pod)
+    return plan_for(cfg, multi_pod=multi_pod, device_count=devices)
+
+
 def model_config(args):
     """The assigned config at ``--scale full``, else the reduced one."""
     from repro_torch.configs import get_config, get_reduced
@@ -165,8 +183,11 @@ class Run:
         self.device = resolve_device(args.device if device is None else device)
         if args.scale == "full" and not args.reduced and self.device.type != "cuda":
             raise ValueError("--scale full runs on the CUDA card only")
+        from repro_torch.dist.tensor_parallel import TensorParallel
+
         self.args = args
         self.rank0 = rules is None or rules.mesh.rank == 0
+        self.tp = None if rules is None else TensorParallel.from_rules(rules)
         self.cfg = model_config(args)
         self.model = build_model(self.cfg)
         self.fl_cfg = FLConfig(
@@ -204,7 +225,7 @@ class Run:
                 self.checkpointer = ckpt.AsyncCheckpointer(args.ckpt_dir)
             latest = ckpt.latest_step(args.ckpt_dir) if args.resume else None
             if latest is not None:
-                self.state = ckpt.restore(args.ckpt_dir, latest, self.state)
+                self.state = ckpt.restore_rank(args.ckpt_dir, latest, self.state, self.tp)
                 self.start_round = latest
                 if self.rank0:
                     print(f"[train] resumed from round {latest}")
@@ -293,11 +314,9 @@ def main_distributed(args):
     """``--devices N``: the round on N spawned ranks; rank 0's final state,
     on the host. A rank that fails fails the launcher."""
     from repro_torch.device import resolve_device
-    from repro_torch.dist.meshes import plan_for
     from repro_torch.dist.world import spawn
 
-    plan = plan_for(model_config(args), multi_pod=args.multi_pod,
-                    device_count=args.devices)
+    plan = mesh_plan(model_config(args), args.devices, args.multi_pod)
     args.slots = plan.num_clients
     args.clients = max(args.clients, 2 * args.slots)
     print(f"[train] mesh plan: {plan.shape}", flush=True)
@@ -311,14 +330,17 @@ def _rank_train(ctx, args):
     0 hands back its final state on the host."""
     from repro_torch import tree
     from repro_torch.dist import make_rules
+    from repro_torch.fl.state import whole_state
     from repro_torch.obs import NoopTracker, tracker_from_spec
 
-    rules = make_rules(None, model_config(args), multi_pod=args.multi_pod,
-                       device_count=ctx.world_size, backend=ctx.backend, device=ctx.device)
+    cfg = model_config(args)
+    rules = make_rules(None, cfg, plan=mesh_plan(cfg, ctx.world_size, args.multi_pod),
+                       backend=ctx.backend, device=ctx.device)
     run = Run(args, rules=rules, device=ctx.device)
     tracker = tracker_from_spec(args.track) if run.rank0 else NoopTracker()
     with tracker:
         state = _train_loop(run, tracker)
+    state = whole_state(state, run.tp)  # every rank of a model group gathers
     if not run.rank0:
         return None
     sched = dataclasses.replace(state.sched, **{
@@ -330,6 +352,8 @@ def _rank_train(ctx, args):
 
 
 def _train_loop(run: Run, tracker):
+    from repro_torch.fl.state import whole_state
+
     args, fl_cfg = run.args, run.fl_cfg
     # the loop owns the state while it runs: a model-sized state left on
     # ``run`` would stay alive beside every round's
@@ -353,8 +377,12 @@ def _train_loop(run: Run, tracker):
                 + f"({time.time() - t0:.2f}s)",
                 flush=True,
             )
-        if run.checkpointer and (r + 1) % args.ckpt_every == 0:
-            run.checkpointer.save(r + 1, state)
+        if args.ckpt_dir and (r + 1) % args.ckpt_every == 0:
+            # whole, gathered over each model group (every rank takes part)
+            whole = whole_state(state, run.tp)
+            if run.checkpointer:
+                run.checkpointer.save(r + 1, whole)
+            del whole
     if run.checkpointer:
         run.checkpointer.wait()
     tracker.log_summary({"arch": args.arch, "scale": args.scale,

@@ -47,8 +47,14 @@ def decls(cfg: ModelConfig):
 class Model:
     cfg: ModelConfig
 
-    def init(self, generator: torch.Generator):
-        return _mod(self.cfg).init_params(self.cfg, generator)
+    def init(self, generator: torch.Generator, rules=None):
+        """Random parameters from ``generator``; under mesh ``rules`` with a
+        model split, this rank's blocks of the same whole tree (every rank
+        draws the whole tree from the same generator state)."""
+        params = _mod(self.cfg).init_params(self.cfg, generator)
+        if rules is None or rules.tensor_ways <= 1:
+            return params
+        return rules.shard_tree(params, decls(self.cfg))
 
     def param_count(self) -> int:
         return count(decls(self.cfg))
@@ -81,6 +87,8 @@ class Model:
         return kw
 
     def loss(self, params, batch, runtime: Runtime = Runtime()):
+        """Mean next-token cross-entropy; with ``runtime.tensor`` on this
+        rank's blocks (the same value on every rank of its model group)."""
         kw = self._split_train_batch(batch)
         return _mod(self.cfg).lm_loss(params, self.cfg, runtime=runtime, **kw)
 

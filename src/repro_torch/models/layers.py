@@ -99,10 +99,13 @@ def _repeat_kv(k: Array, groups: int) -> Array:
 # --------------------------------------------------------------------- #
 def attention_xla(
     q: Array, k: Array, v: Array, q_positions: Array, k_positions: Array,
-    window: int, *, bidirectional: bool = False,
+    window: int, *, bidirectional: bool = False, probs_hook=None,
 ) -> Array:
     """Materialised-score attention. q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd);
-    positions 1-D (Sq,)/(Sk,), shared across the batch."""
+    positions 1-D (Sq,)/(Sk,), shared across the batch. ``probs_hook``
+    maps the probabilities before the v product (the tensor-parallel
+    layer's ``copy`` when v holds a share of ``head_dim``; v may then be
+    narrower than q and k)."""
     groups = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
@@ -111,6 +114,8 @@ def attention_xla(
     if not bidirectional:
         scores = scores + causal_window_bias(q_positions, k_positions, window)[None, None]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if probs_hook is not None:
+        probs = probs_hook(probs)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

@@ -34,6 +34,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import GLOBAL, Family, ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
+    attention_xla,
     attention_decode,
     gated_mlp,
     rms_norm,
@@ -48,7 +49,9 @@ Array = torch.Tensor
 class Runtime:
     """Execution context threaded through the apply functions. The mesh
     fields belong to the distributed path (ROADMAP item 11(b)); the port's
-    single-device path reads only ``moe_impl``."""
+    single-device path reads only ``moe_impl``. ``tensor`` (a
+    ``dist.tensor_parallel.TensorParallel``) runs the DENSE training loss
+    on this rank's parameter blocks (``lm_loss``; see ``_tp_trunk``)."""
 
     mesh: Any = None
     batch_axes: tuple[str, ...] = ("data",)
@@ -56,6 +59,7 @@ class Runtime:
     tp_axis: str | None = None
     moe_impl: str = "dropless"
     moe_group_axes: tuple[str, ...] = ()
+    tensor: Any = None
 
 
 def check_trunk(cfg: ModelConfig) -> None:
@@ -279,6 +283,104 @@ def _layer_fwd(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
 
 
 # --------------------------------------------------------------------- #
+# The layer on this rank's blocks (Runtime.tensor; DENSE, training)
+# --------------------------------------------------------------------- #
+def _tp_attn_block(lp, cfg: ModelConfig, tp, x: Array, positions: Array, window: int,
+                   theta: float) -> Array:
+    """Self-attention on this rank's query heads and ``head_dim`` columns:
+    column-parallel q / k / v (the kv heads its query heads read, all of
+    them held where kv does not divide over tp), q and k made whole over
+    ``head_dim`` for ``qk_norm`` and RoPE (which pair i with i + hd/2),
+    the scores then replicated over sp and the probabilities read by the
+    split v, then the row-parallel output reduced over the attention
+    axes. Returns the replicated (B, S, d) output."""
+    hc = tp.copy(x, tp.attn_axes)
+    u0, u1 = tp.kv_used
+    q = _proj(hc, lp["wq"])
+    k, v = _proj(hc, lp["wk"][:, u0:u1]), _proj(hc, lp["wv"][:, u0:u1])
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"][u0:u1], v + lp["bv"][u0:u1]
+    q, k = tp.gather(q, tp.hd_axes), tp.gather(k, tp.hd_axes)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp.gather(lp["q_norm"], tp.hd_axes), cfg.rms_eps)
+        k = rms_norm(k, tp.gather(lp["k_norm"], tp.hd_axes), cfg.rms_eps)
+    q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    if tp.hd_axes:
+        if cfg.attn_impl not in ("auto", "xla") or k.shape[1] > 8192:
+            raise NotImplementedError(
+                f"attention {cfg.attn_impl!r} over {k.shape[1]} keys with head_dim split "
+                "over sp: only the materialised-score path is executed (ROADMAP.md queue "
+                "1, item 11(b))")
+        out = attention_xla(q, k, v, positions, positions, window,
+                            probs_hook=lambda p: tp.copy(p, tp.hd_axes))
+    else:
+        out = select_attention(cfg.attn_impl, q, k, v, positions, positions, window,
+                               chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    return tp.reduce(attn_out(lp, out), tp.attn_axes)
+
+
+def _tp_layers(params, tp) -> list[dict[str, Array]]:
+    """Every layer's blocks (``unstacked_layers``), each stacked leaf that
+    split computation reads while it is replicated behind one ``copy``
+    over those axes (``TensorParallel.leaf_copies``)."""
+    return unstacked_layers({"layers": {
+        k: tp.copy(v, tp.leaf_copies.get(k, ())) for k, v in params["layers"].items()}})
+
+
+def _tp_trunk(params, cfg: ModelConfig, tp, tokens: Array) -> Array:
+    """The vocabulary-parallel embedding (a masked lookup of the rows this
+    rank holds, then a reduce), every layer on this rank's blocks and the
+    final norm. A replicated leaf that split computation reads (kv
+    heads that do not divide over tp, ``qk_norm``) passes a ``copy``
+    first, so its gradient is summed over those ranks once. Returns the
+    replicated normed hidden (B, S, d)."""
+    lo, hi = tp.vocab
+    if tp.vocab_axes:
+        t = tokens.to(torch.int64) - lo
+        here = (t >= 0) & (t < hi - lo)
+        e = params["embed"][torch.clamp(t, 0, hi - lo - 1)]
+        x = tp.reduce(torch.where(here[..., None], e, torch.zeros_like(e[:1, :1])),
+                      tp.vocab_axes)
+    else:
+        x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    for i, lp in enumerate(_tp_layers(params, tp)):
+        w_i, th_i = static_layer_meta(cfg, i)
+        x = x + _tp_attn_block(lp, cfg, tp, rms_norm(x, lp["attn_norm"], cfg.rms_eps),
+                               positions, w_i, th_i)
+        h = tp.copy(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), tp.mlp_axes)
+        x = x + tp.reduce(gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act),
+                          tp.mlp_axes)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def _single_device(runtime: Runtime) -> None:
+    if getattr(runtime, "tensor", None) is not None:
+        raise NotImplementedError(
+            "the forward and serving paths on tensor-parallel blocks are not executed "
+            "(the training loss is): ROADMAP.md queue 1, item 11(b), step 3")
+
+
+def _tp_ce(params, cfg: ModelConfig, tp):
+    """``_chunked_ce``'s chunk loss on this rank's vocabulary rows: the
+    float32 logits of its block (softcap and the padded rows' mask as in
+    ``_head_logits``) through the vocabulary-parallel cross-entropy."""
+
+    def ce(h_c, t_c, m_c):
+        logits = _head_logits(params, cfg, h_c, tp.vocab)
+        if tp.vocab_axes:
+            per = tp.vocab_ce(logits, t_c)
+        else:
+            gold = torch.gather(logits, -1, t_c[..., None].to(torch.int64))[..., 0]
+            per = torch.logsumexp(logits, dim=-1) - gold
+        return torch.sum(per * m_c), torch.sum(m_c)
+
+    return ce
+
+
+# --------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------- #
 def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None):
@@ -301,6 +403,7 @@ def _trunk(params, cfg: ModelConfig, tokens, embeds, runtime: Runtime, keep: boo
     layers' (k, v) and, for HYBRID, their final (ssm_state, conv_state):
     lists, empty unless ``keep``)."""
     check_trunk(cfg)
+    _single_device(runtime)
     x = embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     kvs, states = [], []
@@ -327,14 +430,18 @@ def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     return x, tuple(torch.stack(t) for t in zip(*kvs))
 
 
-def _head_logits(params, cfg: ModelConfig, h: Array) -> Array:
+def _head_logits(params, cfg: ModelConfig, h: Array, vocab: tuple[int, int] | None = None
+                 ) -> Array:
+    """Float32 logits of hidden ``h``; ``vocab`` (lo, hi): the head holds
+    those vocabulary rows only (a tensor-parallel block)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (h @ w).float()
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     if cfg.padded_vocab != cfg.vocab_size:  # mask padded rows to -inf
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        lo, hi = vocab or (0, cfg.padded_vocab)
+        pad = torch.arange(lo, hi, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
@@ -351,6 +458,11 @@ def lm_loss(params, cfg: ModelConfig, *, tokens=None, embeds=None, targets,
             "lm_loss with attn_impl='flash': K5 (flash_attention_fwd) has no "
             "backward in either package; train with attn_impl 'auto' or 'xla'"
         )
+    tp = getattr(runtime, "tensor", None)  # any object without the field: one device
+    if tp is not None:
+        h = _tp_trunk(params, cfg, tp, tokens)[:, -targets.shape[1]:]
+        return _chunked_ce(params, cfg, tp.copy(h, tp.vocab_axes), targets, loss_mask,
+                           ce=_tp_ce(params, cfg, tp))
     h = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, runtime=runtime)
     # targets are the next-token predictions of the LAST targets.shape[1]
     # positions
@@ -358,19 +470,23 @@ def lm_loss(params, cfg: ModelConfig, *, tokens=None, embeds=None, targets,
     return _chunked_ce(params, cfg, h, targets, loss_mask)
 
 
-def _chunked_ce(params, cfg: ModelConfig, h: Array, targets: Array, loss_mask):
+def _chunked_ce(params, cfg: ModelConfig, h: Array, targets: Array, loss_mask, ce=None):
     """Cross-entropy over ``cfg.loss_chunk``-position chunks of the
     sequence (the last chunk padded with masked positions), summed over
-    chunks in order and divided by the unmasked count."""
+    chunks in order and divided by the unmasked count. ``ce(h_c, t_c,
+    m_c)`` -> (masked sum, count) of a chunk; by default over the whole
+    vocabulary."""
     tlen = targets.shape[1]
     if loss_mask is None:
         loss_mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device)
 
-    def ce(h_c, t_c, m_c):
+    def whole_ce(h_c, t_c, m_c):
         logits = _head_logits(params, cfg, h_c)  # (B, chunk, V) f32
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, t_c[..., None].to(torch.int64))[..., 0]
         return torch.sum((logz - gold) * m_c), torch.sum(m_c)
+
+    ce = ce or whole_ce
 
     chunk = cfg.loss_chunk
     if not chunk or tlen <= chunk:
@@ -445,6 +561,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, runtime=Runtime()):
     ``cache`` in place, advances ``cache["pos"]`` and returns
     (logits (B,1,V) f32, cache)."""
     check_trunk(cfg)
+    _single_device(runtime)
     pos = int(cache["pos"])
     x = embed_inputs(params, cfg, tokens=tokens)
     b = x.shape[0]

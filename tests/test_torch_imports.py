@@ -49,6 +49,7 @@ def test_import_loads_no_jax_and_keeps_torch_state():
         "import repro_torch.models.moe, repro_torch.serve.sweep, repro_torch.sim.faas\n"
         "import repro_torch.models.encdec, repro_torch.models.ssm, repro_torch.tools.profile_serve\n"
         "import repro_torch.dist, repro_torch.dist.world, repro_torch.dist.selftest\n"
+        "import repro_torch.dist.tensor_parallel, repro_torch.dist.sharding\n"
         "import repro_torch.kernels.delta_pipeline.sharded_selftest\n"
         "import repro_torch.kernels.delta_pipeline.fog_selftest\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
