@@ -296,10 +296,40 @@ Phases, one line of output each (any failure raises and exits non-zero):
                 momentum route, held against its plain version window by
                 window and timed beside it, torch.addmv and the byte
                 bound;
+                serve_dist: serving under mesh rules (python -m
+                repro_torch.dist.selftest --mode serve, a child process
+                each), 2 ranks sharing the card through gloo, 128-token
+                prompts, 16 tokens a request, --flash: (a) full-width
+                llama3.2-1b in bf16 over tp 2 (each rank its blocks and
+                kv heads): the static engine on a batch of 8, then the
+                continuous engine, 16 requests on 8 slots, --attn paged;
+                (b) llama3.2-1b on the scaled plan of 2 devices, static:
+                a batch of 8 batch-parallel (4 rows a rank) and a batch
+                of 1 sequence-parallel (64 prompt positions a rank); (c)
+                qwen2.5-14b at full width (qkv bias, 40 heads over 8 kv
+                heads, head_dim 128) cut to SERVE_DIST_QWEN_LAYERS of its
+                48 layers, (tp 1, sp 2), both engines: every request
+                completed, every rank's tokens the same, the decode
+                census equal to the layout's count, K5 = layers per
+                prefill or admission and K7 = layers per decode step on
+                every rank, rank 0's first decode step's logits (the
+                static batch's; the continuous engine's own, of its
+                live slots) within LOGITS_RTOL of the single-process
+                engine with its attention in float32 through the plain
+                versions (no K5, no K7) and, under a model split, no
+                further from the float32 run than BF16_TP_FACTOR times
+                the single-process bf16 run (the child's check after its
+                ranks exit); the requests agreeing with the
+                single-process tokens, wall ms per prefill / admission
+                and decode step, the census and peak bytes per rank
+                printed; then K5 and K7 at a rank's heads held against
+                their plain versions (ATTN_TOL) and timed beside them,
+                the bound and SDPA;
   5. result   — the kernels' JSON line (K3 and K4 with their async and
                 sweep launches beside the main paths', K2-K4 with the
                 train, dist and tp phases' launches and times, K4's
-                dist_* times at (1, P), K3's tp_* times at (1, P)),
+                dist_* times at (1, P), K3's tp_* times at (1, P), K5's
+                and K7's serve_dist launches and rank_heads times),
                 nvidia-smi's line and, last, {"ok": true, "device":
                 {...}}.
 
@@ -1541,9 +1571,17 @@ K7_FAMILY_TIMES = [
 
 def time_attention_families(torch) -> dict:
     """K5 and K7 at the shapes of hymba-1.5b, internvl2-2b and
-    seamless-m4t-medium, bf16, beside the plain version, the bound and
-    SDPA. Returns {kernel: {case: {ms, plain_ms, bound_ms, bound_by,
-    library_ms}}}."""
+    seamless-m4t-medium (``time_attention_cases``)."""
+    return time_attention_cases(torch, K5_FAMILY_TIMES, K7_FAMILY_TIMES, 300)
+
+
+def time_attention_cases(torch, k5_cases, k7_cases, seed: int) -> dict:
+    """K5 at each of ``k5_cases`` and K7 at each of ``k7_cases`` (as
+    ``K5_FAMILY_TIMES`` / ``K7_FAMILY_TIMES``), bf16: each kernel's output
+    held against its plain version on the same inputs (``ATTN_TOL``, as in
+    phase 3; K7's plain version in float32, rounded once), then timed
+    beside the plain version, the bound and SDPA. Returns {kernel: {case:
+    {ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err}}}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_ref
@@ -1555,27 +1593,31 @@ def time_attention_families(torch) -> dict:
     bf, el = torch.bfloat16, 2
     out = {"flash_attention_fwd": {}, "paged_attention_fwd": {}}
 
-    def record(kern, name, t, nbytes, ops, **shape):
+    def record(kern, name, t, nbytes, ops, err, **shape):
         by = (nbytes / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S)
         rec = {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": max(by) * 1e3,
                "bound_by": "bytes" if by[0] >= by[1] else "operations",
-               "library_ms": t["library"]}
+               "library_ms": t["library"], "max_abs_err": err}
         out[kern][name] = rec
         say("timing", kernel=kern, case=repr(name), dtype="bfloat16", **shape, bytes=nbytes,
             operations=ops, **rec, share_of_bound=rec["bound_ms"] / rec["ms"])
 
-    for i, (name, b, h, hkv, sq, sk, hd, win, bidir) in enumerate(K5_FAMILY_TIMES):
+    for i, (name, b, h, hkv, sq, sk, hd, win, bidir) in enumerate(k5_cases):
         gen = torch.Generator(device=dev)
-        gen.manual_seed(300 + i)
+        gen.manual_seed(seed + i)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for shape in
                    ((b, sq, h, hd), (b, sk, hkv, hd), (b, sk, hkv, hd)))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        err = attn_err(torch, flash_attention_cuda(q, k, v, window=win,
+                                                   bidirectional=bidir).transpose(1, 2),
+                       flash_attention_ref(qt, kt, vt, window=win, bidirectional=bidir),
+                       "bfloat16", f"flash {name} (timed shape)")
         qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
         kpos = torch.arange(sk, device=dev)[None, :]
         vis = (kpos <= qpos) & ((qpos - kpos < win) if win else True)
         if bidir:
             lib = lambda i: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)  # noqa: E731
-        elif win and win < sk:
+        elif (win and win < sk) or sq != sk:  # is_causal aligns the queries to key 0
             lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=vis, enable_gqa=True)
         else:
@@ -1589,18 +1631,22 @@ def time_attention_families(torch) -> dict:
              "library": cuda_ms(lib, n)}
         pairs = sq * sk if bidir else causal_pairs(sq, sk, win)
         record("flash_attention_fwd", name, t,
-               el * b * (2 * sq * h * hd + 2 * sk * hkv * hd), 4 * b * h * pairs * hd,
+               el * b * (2 * sq * h * hd + 2 * sk * hkv * hd), 4 * b * h * pairs * hd, err,
                B=b, H=h, Hkv=hkv, Sq=sq, Sk=sk, hd=hd, window=win, bidirectional=bidir)
-    for i, (name, hkv, g, hd, n_tab, win) in enumerate(K7_FAMILY_TIMES):
+    for i, (name, hkv, g, hd, n_tab, win) in enumerate(k7_cases):
         h = hkv * g
         pq, kp, vp, table, lens = paged_inputs(torch, SLOTS, hkv, g, hd, PAGE, n_tab,
-                                               "bfloat16", None, 400 + i, dev)
+                                               "bfloat16", None, seed + 100 + i, dev)
         kg = gather_pages(kp, table).transpose(1, 2).contiguous()
         vg = gather_pages(vp, table).transpose(1, 2).contiguous()
         kpos = torch.arange(n_tab * PAGE, device=dev)[None, :]
         qpos = lens[:, None].long() - 1
         kvis = (kpos <= qpos) & ((qpos - kpos < win) if win > 0 else True)
         kmask = kvis[:, None, None, :]
+        err = attn_err(torch, paged_attention_cuda(pq, kp, vp, table, lens, window=max(win, 0)),
+                       paged_attention_ref(pq.float(), kp.float(), vp.float(), table, lens,
+                                           win).to(bf),
+                       "bfloat16", f"paged {name} (timed shape)")
         t = {"kernel": cuda_ms(lambda i: paged_attention_cuda(pq, kp, vp, table, lens,
                                                               window=max(win, 0)), 400),
              "plain": cuda_ms(lambda i: paged_attention_ref(pq, kp, vp, table, lens, win),
@@ -1610,7 +1656,7 @@ def time_attention_families(torch) -> dict:
         live = int(torch.clamp(lens, max=win).sum()) if win > 0 else int(lens.sum())
         record("paged_attention_fwd", name, t,
                el * (2 * live * hkv * hd + 2 * SLOTS * h * hd) + 4 * (SLOTS * n_tab + SLOTS),
-               4 * live * h * hd, slots=SLOTS, Hkv=hkv, g=g, hd=hd, page=PAGE, window=win,
+               4 * live * h * hd, err, slots=SLOTS, Hkv=hkv, g=g, hd=hd, page=PAGE, window=win,
                lengths=lens.tolist())
     return out
 
@@ -2928,10 +2974,22 @@ DIST_TIMEOUT_S = 420
 
 def run_dist(extra, state_dir, argv=DIST_ARGV) -> dict:
     """One ``dist.selftest`` child; its JSON result (it exits non-zero, and
-    this raises, if a rank fails or a check does not hold)."""
+    this raises, if a rank fails or a check does not hold). Its ranks
+    share the card with each other and with this process, and their
+    allocators map expandable segments: a rank of the LM round peaks near
+    34 GB, and with fixed segments one of its 4.61 GiB allocations has
+    failed with 4.39 GiB free on the card and 2.98 GiB of the rank's own
+    cache reserved but unused."""
     import os
 
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    say("memory", child=" ".join(extra) or "-", this_process_allocated=torch.cuda.
+        memory_allocated(), this_process_reserved=torch.cuda.memory_reserved(),
+        card_free=free, card_total=total)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     proc = subprocess.run([sys.executable, *argv, *extra, "--state-dir", str(state_dir)],
                           capture_output=True, text=True, cwd=ROOT, env=env,
                           timeout=DIST_TIMEOUT_S)
@@ -3178,6 +3236,90 @@ def phase_tp(torch, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": totals, "k3": k3}
+
+
+# ---- serving under mesh rules: dist.selftest --mode serve on two ranks ---- #
+# Two ranks share the card through gloo, as in phases "dist" and "tp". Each
+# child runs its engines on the ranks, then the single-process engines on
+# the same weights and requests, and checks rank 0 against them. (c) cuts
+# qwen2.5-14b's depth: every rank draws the whole tree before it keeps its
+# blocks, and the child's reference holds it twice (bf16 and float32).
+SERVE_DIST_ARGV = ["-m", "repro_torch.dist.selftest", "--mode", "serve", "--devices", "2",
+                   "--scale", "full", "--prompt-len", str(PROMPT), "--gen", "16", "--flash",
+                   "--device", "cuda", "--backend", "gloo", "--check", "--json"]
+SERVE_DIST_QWEN_LAYERS = 4
+SERVE_DIST_RUNS = (
+    ("a: llama3.2-1b, tp 2", ["--arch", "llama3.2-1b", "--model-split", "2,1", "--engine",
+                              "static,continuous", "--batch", "8", "--slots", str(SLOTS),
+                              "--requests", "16", "--attn", "paged"]),
+    ("b: llama3.2-1b, scaled plan of 2", ["--arch", "llama3.2-1b", "--engine", "static",
+                                          "--batch", "8,1"]),
+    ("c: qwen2.5-14b, sp 2", ["--arch", "qwen2.5-14b", "--model-split", "1,2",
+                              "--layers", str(SERVE_DIST_QWEN_LAYERS), "--engine",
+                              "static,continuous", "--batch", "8", "--slots", str(SLOTS),
+                              "--requests", "8", "--attn", "paged"]),
+)
+# (name, B, H, Hkv, Sq, Sk, hd, window, bidirectional) and (name, Hkv, g,
+# hd, pages per slot, window): the shapes a rank's heads give K5 and K7 in
+# the phase
+K5_RANK_TIMES = [
+    ("llama tp 2 admission", 1, 16, 4, PROMPT, PROMPT, 64, 0, False),
+    ("llama tp 2 static prefill", 8, 16, 4, PROMPT, PROMPT, 64, 0, False),
+    ("llama sequence span 1 of 2", 1, 32, 8, PROMPT // 2, PROMPT, 64, 0, False),
+    ("qwen sp 2 (whole head_dim)", 1, 40, 8, PROMPT, PROMPT, 128, 0, False),
+]
+K7_RANK_TIMES = [
+    ("llama tp 2 decode", 4, 4, 64, 10, -1),
+    ("qwen sp 2 decode", 8, 5, 128, 10, -1),
+]
+
+
+def phase_serve_dist(torch, smi) -> dict:
+    """Serving under mesh rules (see the module docstring's phase 4
+    "serve_dist"): cases (a)-(c) through ``dist.selftest --mode serve``,
+    then K5 and K7 at a rank's heads held against their plain versions
+    and timed. Returns the K5 / K7 launches
+    summed over every rank and run, and the times."""
+    totals = {"flash_attention_fwd": 0, "paged_attention_fwd": 0}
+    state_dir = ROOT / "build" / "serve_dist"
+    for name, extra in SERVE_DIST_RUNS:
+        t0 = time.perf_counter()
+        res = run_dist(extra, state_dir, SERVE_DIST_ARGV)
+        wall = time.perf_counter() - t0
+        layers = res["layers"]
+        say("serve_dist", run=repr(name), plan=res["plan"]["shape"], layers=layers,
+            cut=None if not name.startswith("c") else f"{layers} of 48 layers",
+            params=res["param_count"], dtype=res["dtype"], world_s=round(res["world_s"], 1),
+            reference_s=round(res["reference_s"], 1), child_s=round(wall, 1), card=repr(smi))
+        for run, held in zip(res["runs"], res["check"]):
+            paged = run["engine"] == "continuous" and res["attn"] == "paged"
+            want = {"flash_attention_fwd": layers * run["prefills"],
+                    "paged_attention_fwd": layers * run["decode_steps"] if paged else 0}
+            for rank, ln in enumerate(run["launches"]):
+                check(ln == want, f"serve_dist {name}: rank {rank} {run['engine']} "
+                      f"launched {ln}, want {want}")
+                for k, v in ln.items():
+                    totals[k] += v
+            check(run["same_on_ranks"], f"serve_dist {name}: the ranks' tokens differ")
+            check(run["census"]["count_by_kind"] == run["census"]["expected"],
+                  f"serve_dist {name}: census {run['census']}")
+            check(held["ok"], f"serve_dist {name}: {run['engine']} {run['n']}: {held}")
+            say("serve_dist", run=repr(name), engine=run["engine"], n=run["n"],
+                layout=run["layout"]["kind"], census=run["census"]["count_by_kind"],
+                census_bytes=run["census_bytes"], launches_rank0=run["launches"][0],
+                prefills=run["prefills"], decode_steps=run["decode_steps"],
+                prefill_or_admission_ms=run["prefill_ms"], decode_step_ms=run["decode_ms"],
+                single_prefill_or_admission_ms=held["single_prefill_ms"],
+                single_decode_step_ms=held["single_decode_ms"],
+                wall_ms=run["wall_ms"], collective_ms=run["collective_ms"],
+                peak_bytes=run["peak_bytes"],
+                requests_agreeing=f"{held['requests_agreeing']} of {held['requests']}",
+                logits_err=held["logits_err"], logits_tol=LOGITS_RTOL * held["logits_scale"],
+                rms_ratio=held.get("rms_ratio"), card=repr(smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = time_attention_cases(torch, K5_RANK_TIMES, K7_RANK_TIMES, 500)
+    return {"launches": totals, "times": times}
 
 
 # ---- the MoE serving slice: moonshot-v1-16b-a3b ------------------------ #
@@ -4032,6 +4174,15 @@ def main() -> int:
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"):
         k3[f"tp_{key}"] = tpr["k3"][key]
     k3["tp_shape"] = tpr["k3"]["shape"]
+
+    # serving under mesh rules: two ranks on their heads (K5 per admission,
+    # K7 per decode step), batch- and sequence-parallel static serving
+    t0 = time.perf_counter()
+    sdr = phase_serve_dist(torch, smi)
+    say("phase", name="serve_dist", seconds=time.perf_counter() - t0)
+    for name in ("flash_attention_fwd", "paged_attention_fwd"):
+        kernels[name]["serve_dist_launches"] = sdr["launches"][name]
+        kernels[name]["rank_heads"] = sdr["times"][name]
 
     # 5. result: K1 to K7
     print(json.dumps({"kernels": [kernels[name] for name in kernel_counters()]}), flush=True)

@@ -24,7 +24,11 @@ The readers are the JAX package's, on that ledger:
     client coordinates;
   * :func:`tensor_axis_ops` / :func:`tensor_axis_summary`: the
     collectives of the tensor-parallel layers (groups confined to the
-    model axes): count, bytes and wall ms, per local step.
+    model axes): count, bytes and wall ms, per local step;
+  * :func:`census_line`: a serving decode step's census (count by kind,
+    total bytes) in the JAX launcher's ``[serve] decode collectives``
+    form, its ``analyze_hlo(...).collectives`` read off the ledger of one
+    executed step.
 
 Each op carries the round phase it ran in (:func:`labelled`, which the
 round's phases set), so a reader can tell the layers' collectives in
@@ -248,6 +252,12 @@ def tensor_axis_summary(log, rules, steps: int, phase: str = "local_training") -
         ms=(sum(ms) / steps) if ops and None not in ms else None,
         by_kind={k: v / steps for k, v in Counter(op.kind for op in ops).items()},
     )
+
+
+def census_line(stats: CollectiveStats) -> str:
+    """The JAX serving launcher's census line of one decode step."""
+    return (f"[serve] decode collectives: {stats.count_by_kind} "
+            f"total={stats.total_bytes:.2e} B")
 
 
 def inter_client_all_reduces(log, rules, param_count: int) -> tuple[int, float]:

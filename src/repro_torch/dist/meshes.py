@@ -112,12 +112,21 @@ class Mesh:
         return idx
 
     def group(self, axes):
-        """This rank's process group along ``axes``."""
+        """This rank's process group along ``axes`` (axes of extent 1 do not
+        tell two sets apart)."""
         key = tuple(axes)
-        if key not in self.groups:
-            raise KeyError(f"no process group along {key} (extent {self.ways(key)}); "
-                           f"built: {sorted(self.groups)}")
-        return self.groups[key]
+        if key in self.groups:
+            return self.groups[key]
+        shape = self.shape
+
+        def wide(k):
+            return tuple(a for a in k if shape.get(a, 1) > 1)
+
+        for k, g in self.groups.items():
+            if wide(k) == wide(key):
+                return g
+        raise KeyError(f"no process group along {key} (extent {self.ways(key)}); "
+                       f"built: {sorted(self.groups)}")
 
 
 def split_fog_axes(mesh, client_axes, fog_nodes: int
@@ -246,9 +255,16 @@ class MeshPlan:
             sets += [(a,), (b,), (a, b), self.data_axes]
         return sets
 
+    def group_sets(self) -> list[tuple[str, ...]]:
+        """The axis sets a mesh builds groups for: :meth:`axis_sets` and the
+        data axes, the set a serving batch splits over (already among them
+        under a model split)."""
+        sets = self.axis_sets()
+        return sets if self.data_axes in sets else sets + [self.data_axes]
+
     def build_mesh(self, backend: str = "gloo", device=None) -> Mesh:
         """This rank's :class:`Mesh`, with a process group for every axis
-        set of :meth:`axis_sets` whose extent is above 1, on ``device``
+        set of :meth:`group_sets` whose extent is above 1, on ``device``
         (None: the CUDA card; the CPU only when asked for by name).
 
         Needs an initialized default group of ``device_count`` ranks (a
@@ -274,7 +290,7 @@ class MeshPlan:
         device = resolve_device(device)
         rank_devices(backend, self.device_count, device)  # validates the route
         groups = {}
-        for axes in self.axis_sets():
+        for axes in self.group_sets():
             ways = math.prod(self.shape[a] for a in axes)
             if ways <= 1 or not inited:
                 continue

@@ -80,6 +80,11 @@ same parameters; the loss within ``LOSS_RTOL``). ``--layers N`` cuts
 the depth (printed in the result), ``--dtype float32`` runs a full-width
 config in float32 (how the bf16 bound was measured).
 
+``--mode serve`` runs serving under mesh rules instead of the round
+(``dist.serve_selftest``: the static engine for each ``--batch``, the
+continuous one with ``--engine ...,continuous``, held against the
+single-process engines).
+
 Prints one JSON line with ``--json``; exits 0 when every check holds.
 Median / trimmed and attacks are not ported under rules (item 11(b)).
 """
@@ -704,6 +709,14 @@ def _run_step(spec, cfg, plan, dev, backend, check) -> dict:
     return result
 
 
+def _jsonable(x):
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    raise TypeError(f"{type(x)} is not JSON serializable")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -731,22 +744,48 @@ def main(argv=None):
     ap.add_argument("--model-split", default=None,
                     help="T,S: a MeshPlan with tp T and sp S (client = devices / "
                          "(zero*T*S)); the DENSE family only")
-    ap.add_argument("--mode", default="round", choices=("round", "step"),
-                    help="step: one local step's loss and gradient only")
+    ap.add_argument("--mode", default="round", choices=("round", "step", "serve"),
+                    help="step: one local step's loss and gradient only; serve: serving "
+                         "under the rules (dist.serve_selftest)")
+    ap.add_argument("--engine", default="static",
+                    help="--mode serve: static, continuous or both, comma-separated")
+    ap.add_argument("--batch", default="4",
+                    help="--mode serve: the static batch, or several comma-separated")
+    ap.add_argument("--slots", type=int, default=4, help="--mode serve: continuous slots")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="--mode serve: the continuous engine's trace length")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=8, help="--mode serve: tokens a request")
+    ap.add_argument("--attn", default="dense", choices=("dense", "paged"),
+                    help="--mode serve: the continuous engine's decode attention (paged: K7)")
+    ap.add_argument("--flash", action="store_true",
+                    help="--mode serve: prefill through K5 (attn_impl='flash')")
     ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
                     help="--scale full in this dtype (default the config's bf16)")
     ap.add_argument("--layers", type=int, default=None, help="cut the depth to N layers")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
+    split = (None if args.model_split is None
+             else tuple(int(x) for x in args.model_split.split(",")))
+    if args.mode == "serve":
+        from repro_torch.dist.serve_selftest import run_serve
+
+        res = run_serve(
+            args.arch, args.devices, engines=args.engine.split(","),
+            batches=[int(x) for x in args.batch.split(",")], slots=args.slots,
+            requests=args.requests, prompt_len=args.prompt_len, gen=args.gen,
+            attn=args.attn, flash=args.flash, model_split=split, check=args.check,
+            device=args.device, backend=args.backend, scale=args.scale, dtype=args.dtype,
+            layers=args.layers, seed=args.seed)
+        print(json.dumps(res, default=_jsonable) if args.json else res)
+        return 0 if res["ok"] else 1
     res = run_selftest(
         args.arch, args.devices, zero=args.zero, fog_nodes=args.fog_nodes,
         population=args.population, gates=args.gates.split(","),
         pallas_agg=args.pallas_agg, check=args.check, device=args.device,
         backend=args.backend, scale=args.scale, seq_len=args.seq_len,
         local_steps=args.local_steps, seed=args.seed, state_dir=args.state_dir,
-        model_split=(None if args.model_split is None
-                     else tuple(int(x) for x in args.model_split.split(","))),
-        mode=args.mode, dtype=args.dtype, layers=args.layers)
+        model_split=split, mode=args.mode, dtype=args.dtype, layers=args.layers)
     if args.json:
         print(json.dumps(res))
     else:

@@ -35,6 +35,15 @@ round computes on those blocks (``dist.tensor_parallel``). A dim the
 axis does not divide stays whole on every rank of that axis. ``zero``
 stays off the parameters (FSDP of ``embed`` over zero is queued), so
 the tensor specs are ``param_specs(..., fsdp=False)``.
+
+Serving (:meth:`ShardingRules.serve_layout`) reads the same specs: the
+weights are the rank's blocks with ``fsdp=False``; the batch splits its
+rows over the data axes where they divide it (``serve_batch_specs``),
+else the prompt's positions, else nothing; the cache block is the rank's
+rows, its span of the sequence (where JAX's ``cache_specs`` may pick
+``head_dim`` for a short cache, the port keeps the sequence split: the
+layout is the port's, the values the JAX's) and, under a model split,
+the kv heads its query heads read.
 """
 from __future__ import annotations
 
@@ -340,6 +349,18 @@ class ShardingRules:
                 out[k] = ()
         return out
 
+    def serve_layout(self, batch: int, prompt_len: int) -> "ServeLayout":
+        """This rank's :class:`ServeLayout` of a static (batch, prompt_len)
+        serving batch, as ``serve_batch_specs`` splits its tokens."""
+        axes = self.serve_batch_axes
+        ways = self._data_prod()
+        spec = self.serve_batch_specs({"tokens": (batch, prompt_len)})["tokens"]
+        index = self.mesh.index(axes) if ways > 1 else 0
+        if spec and spec[0] is not None:
+            return ServeLayout("batch", axes, ways, index, even_span(batch, ways, index))
+        kind = "sequence" if len(spec) > 1 and spec[1] is not None else "replicated"
+        return ServeLayout(kind, axes, ways, index, (0, batch))
+
     # ------------------------------------------------------------------ #
     # Decode caches
     # ------------------------------------------------------------------ #
@@ -369,6 +390,49 @@ class ShardingRules:
             return ()
 
         return tree.map(one, cache)
+
+
+def even_span(n: int, ways: int, index: int) -> tuple[int, int]:
+    """``[lo, hi)``: member ``index``'s share of ``n`` positions that divide
+    over ``ways``."""
+    if n % ways:
+        raise ValueError(f"{n} positions do not divide over {ways} ranks")
+    per = n // ways
+    return index * per, (index + 1) * per
+
+
+def ceil_span(n: int, ways: int, index: int) -> tuple[int, int]:
+    """``[lo, hi)``: member ``index``'s share of ``n`` positions in spans of
+    ``ceil(n / ways)``, the last ones shorter (possibly empty)."""
+    per = -(-n // ways)
+    return min(index * per, n), min((index + 1) * per, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """How one rank serves a static batch under mesh rules (see the module
+    docstring): ``kind`` "batch" (its ``rows`` of the batch), "sequence"
+    (every row; its span of the prompt and of the cache) or "replicated"
+    (everything, as JAX's ``P()``), over the data ``axes`` (``ways``
+    ranks, this one at ``index``)."""
+
+    kind: str
+    axes: tuple[str, ...]
+    ways: int
+    index: int
+    rows: tuple[int, int]
+
+    def prompt_span(self, n: int) -> tuple[int, int]:
+        """The prompt positions this rank prefills."""
+        if self.kind != "sequence":
+            return 0, n
+        return even_span(n, self.ways, self.index)
+
+    def cache_span(self, n: int) -> tuple[int, int]:
+        """The positions of an ``n``-long cache this rank holds."""
+        if self.kind != "sequence":
+            return 0, n
+        return ceil_span(n, self.ways, self.index)
 
 
 def make_rules(

@@ -1,6 +1,7 @@
 """Tensor parallelism over a plan's model axes, ``tp`` and ``sp``, for the
-DENSE family's LM round (no JAX counterpart: GSPMD inserts these
-collectives from the round's sharding constraints).
+DENSE family's LM round and its serving, and the sequence split of
+static serving over the data axes (no JAX counterpart: GSPMD inserts
+these collectives from the sharding constraints).
 
 Each rank holds its block of every parameter (``ShardingRules.
 tensor_specs``: ``heads`` / ``kv`` on tp, ``head_dim`` on sp, ``mlp`` /
@@ -13,9 +14,12 @@ mesh-axis group carry the values between the blocks:
     gradient comes back as one share per rank;
   * ``reduce``: all-reduce forward, identity backward: a row-parallel
     product's partial sums, read by replicated computation after it;
-  * ``gather``: all-gather forward (along the last dim), slice backward:
-    a ``head_dim`` split over sp made whole for RoPE and ``qk_norm``,
-    which pair and normalise across it;
+  * ``gather``: all-gather forward (along the last dim), reduce-scatter
+    backward (an all-reduce, then the rank's slice): q, k and v split
+    over sp made whole over ``head_dim`` for RoPE, ``qk_norm`` and
+    attention, which every rank of the sp group then computes alike;
+    each rank reads only its ``head_dim`` columns of the output (its
+    ``wo`` block), so each holds a share of the whole gradient;
   * ``vocab_ce``: the vocabulary-parallel cross-entropy: the max, the
     sum of exponentials and the gold logit reduced over the vocabulary
     blocks; its backward is local (softmax minus one-hot).
@@ -27,6 +31,27 @@ one rank's view: the axes each part of the layer splits over, the heads,
 gathers of the (C_local, P_local) delta rows, the parameters and the
 momentum into whole rows (JAX ``shard_p=False``: P whole within a client
 shard) and the blocks kept after it.
+
+The training loss and serving (``models/transformer``, ``serve/paged``)
+run the same layer: q, k and v of the rank's heads are gathered whole
+over ``head_dim`` in one all-gather (one tensor packed along the heads)
+before RoPE, so attention (K5 and K7 in serving) runs with whole rows,
+replicated over sp; ``wo`` stays row-parallel over tp × sp and its
+partial sums are reduced, as the MLP's are. Serving also holds the
+``qk_norm`` scales whole, gathered once (:meth:`TensorParallel.
+serving_params`); the rank's cache or page pool holds the kv heads its
+query heads read (:attr:`TensorParallel.kv_heads`); and the greedy pick
+is vocabulary-parallel (:meth:`TensorParallel.argmax`: each block's max
+and index, then one all-gather), so no rank holds the whole (B, V)
+logits.
+
+:class:`SequenceParallel` is a rank's view of the static engine's
+sequence split (``ShardingRules.serve_layout`` kind "sequence"): each
+rank prefills its span of the prompt against the keys and values
+gathered over the data axes, keeps its span of the cache, and a decode
+step merges the ranks' partial softmaxes by two all-reduces (the max,
+then the rescaled sums and outputs): flash-decode across shards, as the
+JAX package's ``_replicate_small`` makes GSPMD do.
 
 Only DENSE is executed: the expert axis, HYBRID's ``ssm`` dims and the
 VLM, ENCDEC, SSM and MoE families raise, naming ROADMAP item 11(b).
@@ -82,7 +107,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, ways: int, index: int):
         n = x.shape[-1]
-        ctx.lo, ctx.hi = index * n, (index + 1) * n
+        ctx.lo, ctx.hi, ctx.group = index * n, (index + 1) * n, group
         flat = x.contiguous().reshape(-1)
         out = torch.empty((ways * flat.numel(),), dtype=x.dtype, device=x.device)
         _all_gather(out, flat, group)
@@ -91,6 +116,8 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        g = g.contiguous()
+        torch.distributed.all_reduce(g, group=ctx.group)
         return g[..., ctx.lo:ctx.hi].contiguous(), None, None, None
 
 
@@ -230,6 +257,67 @@ class TensorParallel:
         return _VocabCE.apply(logits, targets, self.vocab[0], self._group(self.vocab_axes))
 
     # ------------------------------------------------------------------ #
+    # Serving
+    # ------------------------------------------------------------------ #
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this rank's cache or page pool holds: those its
+        query heads read."""
+        return self.kv_used[1] - self.kv_used[0]
+
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The vocabulary-parallel greedy pick: ``logits`` (..., V_local),
+        this rank's vocabulary block -> (...) int64 whole-vocabulary ids,
+        the same on every rank. Each block's max and its (first) index go
+        out in one all-gather; the first block holding the largest max
+        wins, so ties resolve to the smallest id, as ``torch.argmax``."""
+        if not self.vocab_axes:
+            return torch.argmax(logits, dim=-1)
+        idx = torch.argmax(logits, dim=-1)
+        best = torch.gather(logits, -1, idx[..., None])[..., 0]
+        pack = torch.stack([best.double(), (idx + self.vocab[0]).double()], dim=-1)
+        ways = self.mesh.ways(self.vocab_axes)
+        out = torch.empty((ways,) + tuple(pack.shape), dtype=pack.dtype, device=pack.device)
+        _all_gather(out.view(-1), pack.contiguous().view(-1), self._group(self.vocab_axes))
+        win = torch.argmax(out[..., 0], dim=0)
+        return torch.gather(out[..., 1], 0, win[None])[0].long()
+
+    def gather_heads(self, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Tensors (..., heads, hd_local) made whole over ``head_dim`` in one
+        all-gather over the sp axes (packed along the heads)."""
+        if not self.hd_axes:
+            return xs
+        whole = self.gather(torch.cat(xs, dim=-2), self.hd_axes)
+        return torch.split(whole, [x.shape[-2] for x in xs], dim=-2)
+
+    def whole_head_dim(self, w: torch.Tensor, head_dim: int) -> torch.Tensor:
+        """A ``head_dim`` leaf (the ``qk_norm`` scales) whole: gathered over
+        the sp axes where it is the rank's block (the training loss), as it
+        comes where :meth:`serving_params` made it whole."""
+        return w if w.shape[-1] == head_dim else self.gather(w, self.hd_axes)
+
+    def serving_params(self, params):
+        """``params`` (the rank's blocks) with the ``qk_norm`` scales made
+        whole over ``head_dim``, one all-gather a leaf: serving reads them
+        every step and they never change. The same tree where they are
+        whole already (no sp split, no ``qk_norm``, or made so before)."""
+        layers = params["layers"]
+        if not self.hd_axes or "q_norm" not in layers:
+            return params
+        hd = self.rules.cfg.head_dim
+        whole = {k: self.whole_head_dim(layers[k], hd) for k in ("q_norm", "k_norm")}
+        return dict(params, layers=dict(layers, **whole))
+
+    def head_dim_block(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole-``head_dim`` tensor's columns that this rank's row-parallel
+        ``wo`` block reads."""
+        if not self.hd_axes:
+            return x
+        n = x.shape[-1] // self.mesh.ways(self.hd_axes)
+        i = self.mesh.index(self.hd_axes)
+        return x[..., i * n:(i + 1) * n]
+
+    # ------------------------------------------------------------------ #
     # The server pass: whole rows in, this rank's blocks out
     # ------------------------------------------------------------------ #
     @property
@@ -336,6 +424,66 @@ class TensorParallel:
     def shard_tree(self, full):
         """A whole tree -> this rank's blocks (copies)."""
         return self.rules.shard_tree(full, self.decls)
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceParallel:
+    """One rank's view of the static engine's sequence split over the data
+    ``axes`` (see the module docstring). Build it with :meth:`from_rules`."""
+
+    mesh: object  # dist.meshes.Mesh
+    layout: object  # dist.sharding.ServeLayout, kind "sequence"
+
+    @classmethod
+    def from_rules(cls, rules, batch: int, prompt_len: int):
+        """The view for a (batch, prompt_len) static batch under ``rules``;
+        None unless its layout splits the sequence."""
+        layout = rules.serve_layout(batch, prompt_len)
+        return cls(rules.mesh, layout) if layout.kind == "sequence" else None
+
+    @property
+    def _group(self):
+        return self.mesh.group(self.layout.axes)
+
+    def prompt_span(self, n: int) -> tuple[int, int]:
+        return self.layout.prompt_span(n)
+
+    def cache_span(self, n: int) -> tuple[int, int]:
+        return self.layout.cache_span(n)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Each rank's (B, span, ...) -> the whole (B, ways · span, ...),
+        spans in rank order."""
+        ways = self.layout.ways
+        out = torch.empty((ways,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        _all_gather(out.view(-1), x.contiguous().view(-1), self._group)
+        return out.movedim(0, 1).flatten(1, 2)
+
+    def merge(self, m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial decode attentions (``layers.attention_decode_partial``)
+        merged: the max over the ranks, then each rank's sums and output
+        rescaled to it and summed (two all-reduces)."""
+        from repro_torch.models.layers import merge_attention_partials
+
+        def reduce_max(t):
+            torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                         group=self._group)
+            return t
+
+        def reduce_sum(t):
+            torch.distributed.all_reduce(t, group=self._group)
+            return t
+
+        return merge_attention_partials(m, l, o, reduce_max, reduce_sum)
+
+    def last(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the last rank of the split holds it (the prompt's last
+        position), on every rank."""
+        dist = torch.distributed
+        y = x.contiguous().clone()
+        dist.broadcast(y, dist.get_global_rank(self._group, self.layout.ways - 1),
+                       group=self._group)
+        return y
 
 
 def _paths(decls, prefix=()):

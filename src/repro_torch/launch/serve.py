@@ -36,16 +36,35 @@ one on one device. Engines:
 which has no attention, ``--flash`` and ``--attn`` have no effect, as in
 the JAX launcher. ``--track SPEC --track-every K`` (SPEC ``jsonl:PATH``,
 ``csv:PATH``, ``noop``, comma-separated to compose) streams one row per
-K decode steps of either engine through ``repro_torch.obs``. The mesh
-options of the JAX launcher (``--devices``, ``--multi-pod``,
-``--reduced``) belong to the distributed path and raise until ROADMAP.md
-queue 1, item 11(b) ports it.
+K decode steps of either engine through ``repro_torch.obs``.
+
+Mesh rules, as in the JAX launcher: ``--scale full`` with ``--devices
+N``, ``--multi-pod`` or ``--reduced`` serves on a world of ranks
+(``torch.distributed``, ``--backend gloo|nccl``; nccl needs a card per
+rank). The plan is ``launch.train.mesh_plan``'s: the production plan at
+256 devices a pod (512 with ``--multi-pod``, also when ``--devices`` is
+not given), tensor axes included, else the scaled host plan; ``--reduced``
+serves the reduced config on it. Each rank holds its blocks of the
+weights (``param_specs(..., fsdp=False)``: no zero split on the decode
+path), the static engine splits the batch's rows over the data axes, or
+the prompt's positions where the rows do not divide (DENSE), and the
+continuous engine runs the whole trace on every data replica, on the
+rank's heads under a model split (``serve.static``, ``serve.engine``).
+The plan and the decode step's collective census are printed first:
+
+    python -m repro_torch.launch.serve --scale full --devices 2 --reduced --device cpu
+    python -m repro_torch.launch.serve --scale full --devices 2 --reduced --device cpu \
+        --batch 1 --prompt-len 32                     # the sequence split
+    python -m repro_torch.launch.serve --scale full --devices 2 --reduced --device cpu \
+        --engine continuous --attn paged --flash
+
+MoE under rules, and the other families on a model or sequence split,
+raise (ROADMAP.md queue 1, item 11(b)).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 
 def main(argv=None):
@@ -61,9 +80,14 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="with --scale full: serve on N ranks (256, or 512 with "
+                         "--multi-pod: the production plan)")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--reduced", action="store_true",
+                    help="with --scale full: the reduced config on the mesh plan")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the ranks' torch.distributed backend under mesh rules")
     ap.add_argument("--requests", type=int, default=16,
                     help="trace length for --engine continuous")
     ap.add_argument("--rate", type=float, default=20.0,
@@ -77,11 +101,8 @@ def main(argv=None):
                     help="tracker spec, e.g. jsonl:/tmp/serve.jsonl")
     ap.add_argument("--track-every", type=int, default=1)
     args = ap.parse_args(argv)
-
     if args.devices or args.multi_pod or args.reduced:
-        raise NotImplementedError(
-            "--devices, --multi-pod and --reduced drive the distributed mesh path, "
-            "not ported yet: ROADMAP.md queue 1, item 11(b)")
+        return _run_mesh(args)
 
     import torch
 
@@ -113,33 +134,133 @@ def main(argv=None):
             tap.tracker.finish()
 
 
-def _run_static(args, cfg, model, params, device, tap):
+def mesh_config(args):
+    """The config of the mesh path: the assigned one, or with ``--reduced``
+    the reduced one (``loss_chunk=0``, as the JAX launcher builds it);
+    ``--flash`` sets ``attn_impl="flash"``."""
+    from repro_torch.configs import get_config, get_reduced
+
+    cfg = get_reduced(args.arch, loss_chunk=0) if args.reduced else get_config(args.arch)
+    return dataclasses.replace(cfg, attn_impl="flash") if args.flash else cfg
+
+
+def serve_plan(cfg, devices: int = 0, multi_pod: bool = False):
+    """The mesh plan of ``--devices`` (0: the production pool, 256 devices
+    a pod), by ``launch.train.mesh_plan``'s rule (JAX ``launch/serve.py``
+    ``:107–129``)."""
+    from repro_torch.dist.meshes import DATA_PER_POD, MODEL_PER_POD
+    from repro_torch.launch.train import mesh_plan
+
+    pods = 2 if multi_pod else 1
+    return mesh_plan(cfg, devices or DATA_PER_POD * MODEL_PER_POD * pods, multi_pod)
+
+
+def check_mesh(cfg, plan, args) -> None:
+    """Refuse, before any rank starts, what the mesh path does not execute
+    (ROADMAP.md queue 1, item 11(b)): MoE under rules, another family than
+    DENSE on a model split or (static engine) a sequence split."""
     import torch
+
+    from repro_torch.dist.meshes import Mesh
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.models import Family
+    from repro_torch.serve.static import _MOE
+
+    if cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: {_MOE}")
+    if cfg.family is Family.DENSE:
+        return
+    if plan.model_ways > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family.value} family on a model split {plan.shape} is "
+            "not executed yet; DENSE only: ROADMAP.md queue 1, item 11(b)")
+    rules = ShardingRules(cfg, plan, Mesh(plan.axis_names, plan.axis_sizes, 0,
+                                          torch.device("cpu"), args.backend))
+    if args.engine == "static" and rules.serve_layout(args.batch,
+                                                      args.prompt_len).kind == "sequence":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family.value} family on a sequence split (batch "
+            f"{args.batch} does not divide the data axes) is not executed yet; DENSE only: "
+            "ROADMAP.md queue 1, item 11(b)")
+
+
+def _run_mesh(args):
+    """The mesh path: the plan printed, ``plan.device_count`` ranks spawned
+    (``serve_rank``); returns rank 0's result."""
+    if args.scale != "full":
+        raise ValueError("--devices, --multi-pod and --reduced take --scale full "
+                         "(the mesh path, as in the JAX launcher)")
+    from repro_torch.device import resolve_device
+    from repro_torch.dist.world import spawn
+
+    cfg = mesh_config(args)
+    plan = serve_plan(cfg, args.devices, args.multi_pod)
+    check_mesh(cfg, plan, args)
+    device = resolve_device(args.device)
+    print(f"[serve] mesh plan: {plan.shape}", flush=True)
+    return spawn(serve_rank, plan.device_count, vars(args), backend=args.backend,
+                 device=device, timeout=3600.0)[0]
+
+
+def serve_rank(ctx, opts: dict):
+    """One rank of the mesh path (``dist.world.RankContext`` ``ctx``, the
+    launcher's options): the rules, the rank's blocks of the weights drawn
+    from ``--seed`` (every rank draws the whole tree, then keeps its
+    blocks), and the engine; rank 0 prints and returns the result, the
+    others None."""
+    import torch
+
+    from repro_torch.dist import make_rules
+    from repro_torch.models import build_model
+
+    args = argparse.Namespace(**opts)
+    cfg = mesh_config(args)
+    plan = serve_plan(cfg, args.devices, args.multi_pod)
+    rules = make_rules(None, cfg, plan=plan, backend=ctx.backend, device=ctx.device)
+    model = build_model(cfg)
+    gen = torch.Generator(device=ctx.device)
+    gen.manual_seed(args.seed)
+    params = model.init(gen, rules)
+    tap = None
+    if args.track and ctx.rank == 0:
+        from repro_torch.obs import MetricTap, tracker_from_spec
+
+        tap = MetricTap(tracker_from_spec(args.track), every=args.track_every,
+                        const={"arch": cfg.name}, channel="serve")
+    try:
+        run = _run_continuous if args.engine == "continuous" else _run_static
+        out = run(args, cfg, model, params, ctx.device, tap, rules)
+    finally:
+        if tap is not None:
+            tap.tracker.finish()
+    return out if ctx.rank == 0 else None
+
+
+def _run_static(args, cfg, model, params, device, tap, rules=None):
+    import torch
+
+    from repro_torch.serve.static import decode_census, serve_runtime, serve_static
 
     batch, cache_len = static_batch(cfg, args.batch, args.prompt_len, args.gen,
                                     args.seed, device)
-    out = torch.zeros((args.batch, args.gen), dtype=torch.int32, device=device)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(params, batch, cache_len=cache_len)
-        toks = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        out[:, 0] = toks[:, 0].int()
-        sync()
-        t_prefill = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for i in range(1, args.gen):
-            logits, cache = model.decode_step(params, cache, toks)
-            toks = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            out[:, i] = toks[:, 0].int()
-            if tap is not None:
-                tap.host_log({"step": i, "batch": args.batch}, step=i)
-        out = out.cpu()  # the one device -> host read
-        t_decode = time.perf_counter() - t0
-    print(f"arch={cfg.name} device={device} prefill={t_prefill * 1e3:.1f}ms "
-          f"decode={t_decode / max(args.gen - 1, 1) * 1e3:.2f}ms/tok")
-    print("generated token ids (first row):", out[0].tolist())
-    return out
+    show = rules is None or rules.mesh.rank == 0
+    if rules is not None:
+        from repro_torch.dist.collectives import census_line
+
+        layout = rules.serve_layout(args.batch, args.prompt_len)
+        stats = decode_census(model, params, layout.rows[1] - layout.rows[0], cache_len,
+                              args.prompt_len, serve_runtime(rules, args.batch,
+                                                             args.prompt_len), device)
+        if show:
+            print(f"[serve] layout: {layout.kind} over {layout.axes} "
+                  f"(rows {layout.rows} of rank 0)", flush=True)
+            print(census_line(stats), flush=True)
+    res = serve_static(model, params, batch, cache_len, args.gen, rules=rules, tap=tap)
+    if show:
+        print(f"arch={cfg.name} device={device} prefill={res.prefill_ms:.1f}ms "
+              f"decode={res.decode_ms:.2f}ms/tok")
+        print("generated token ids (first row):", res.tokens[0].tolist())
+    return torch.from_numpy(res.tokens)
 
 
 def static_batch(cfg, batch: int, prompt_len: int, gen: int, seed: int, device):
@@ -167,15 +288,25 @@ def static_batch(cfg, batch: int, prompt_len: int, gen: int, seed: int, device):
     return out, cache_len
 
 
-def _run_continuous(args, cfg, model, params, device, tap):
+def _run_continuous(args, cfg, model, params, device, tap, rules=None):
+    from repro_torch.models import Runtime
     from repro_torch.random import TorchDraws
     from repro_torch.serve import ContinuousBatchingEngine, EngineConfig, TraceConfig, make_trace
+    from repro_torch.serve.static import serve_runtime
 
     slots = args.slots or args.batch
     ecfg = EngineConfig(slots=slots, page_size=args.page_size, prompt_len=args.prompt_len,
                         max_gen=args.gen, max_requests=max(args.requests, 1),
                         attn=args.attn, policy=args.policy)
-    engine = ContinuousBatchingEngine(model, params, ecfg, tap=tap)
+    runtime = Runtime() if rules is None else serve_runtime(rules)
+    engine = ContinuousBatchingEngine(model, params, ecfg, runtime=runtime, tap=tap)
+    show = rules is None or rules.mesh.rank == 0
+    if rules is not None:
+        from repro_torch.dist.collectives import census_line
+
+        stats = engine.decode_collectives()
+        if show:
+            print(census_line(stats), flush=True)
     trace = make_trace(
         TorchDraws(args.seed + 1, "cpu"),
         TraceConfig(n_requests=args.requests, rate_per_s=args.rate, slo_ms=args.slo_ms,
@@ -184,6 +315,8 @@ def _run_continuous(args, cfg, model, params, device, tap):
         cfg,
     )
     rep = engine.serve(trace)
+    if not show:
+        return rep
     pct = rep.percentiles
     print(f"arch={cfg.name} device={device} engine=continuous slots={slots} "
           f"attn={args.attn} attn_impl={cfg.attn_impl} requests={rep.n_requests} "

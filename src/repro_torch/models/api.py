@@ -8,7 +8,7 @@ config and dispatch on its family, as the JAX package's do:
     model.loss(params, batch)                  -> scalar CE loss
     model.prefill(params, batch, cache_len)    -> (logits, cache)
     model.decode_step(params, cache, tokens)   -> (logits, cache)
-    model.init_cache(batch, max_len, src_len=0, device=None) -> cache
+    model.init_cache(batch, max_len, src_len=0, device=None, runtime=Runtime()) -> cache
     model.param_count() / active_param_count() / flops_per_token()
 
 ``batch`` keys by family (an optional ``loss_mask`` (B, S) beside them):
@@ -17,6 +17,12 @@ config and dispatch on its family, as the JAX package's do:
                                 targets derived here
     vlm:    tokens (B, S_text+1), patch_embeds (B, S_img, d)
     encdec: frames (B, S_src, d), tokens (B, S_tgt+1)
+
+Serving methods take a ``Runtime``: under mesh rules its ``tensor`` /
+``sequence`` views run a DENSE model on one rank's share (its logits are
+its vocabulary block, its cache its kv heads and span; pick tokens with
+``transformer.greedy``); any other family under them raises, naming
+ROADMAP item 11(b).
 """
 from __future__ import annotations
 
@@ -92,12 +98,20 @@ class Model:
         kw = self._split_train_batch(batch)
         return _mod(self.cfg).lm_loss(params, self.cfg, runtime=runtime, **kw)
 
-    def init_cache(self, batch_size: int, max_len: int, src_len: int = 0, device=None):
+    def init_cache(self, batch_size: int, max_len: int, src_len: int = 0, device=None,
+                   runtime: Runtime = Runtime()):
+        """A zeroed cache of ``batch_size`` rows; under ``runtime`` the
+        rank's block of it (its kv heads, its span of ``max_len``)."""
+        transformer.check_split(self.cfg, runtime)
         if self.cfg.family is Family.ENCDEC:
             return encdec.init_cache(self.cfg, batch_size, max_len, src_len, device=device)
-        return _mod(self.cfg).init_cache(self.cfg, batch_size, max_len, device=device)
+        if self.cfg.family is Family.SSM:
+            return rwkv6.init_cache(self.cfg, batch_size, max_len, device=device)
+        return transformer.init_cache(self.cfg, batch_size, max_len, device=device,
+                                      runtime=runtime)
 
     def prefill(self, params, batch, cache_len: int, runtime: Runtime = Runtime()):
+        transformer.check_split(self.cfg, runtime)
         kw = {}
         if self.cfg.family is Family.ENCDEC:
             kw["frames"] = batch["frames"]
@@ -107,6 +121,7 @@ class Model:
                                       cache_len=cache_len, runtime=runtime, **kw)
 
     def decode_step(self, params, cache, tokens, runtime: Runtime = Runtime()):
+        transformer.check_split(self.cfg, runtime)
         return _mod(self.cfg).decode_step(params, self.cfg, cache, tokens, runtime)
 
 

@@ -15,6 +15,14 @@ Attention implementations, chosen by ``ModelConfig.attn_impl`` through
 
 All share the mask convention: causal + optional sliding window, where
 ``window == GLOBAL (-1)`` means unbounded.
+
+The sequence split of static serving (``dist.tensor_parallel.
+SequenceParallel``) adds two pieces: :func:`span_attention`, a span of
+the prompt's queries against the whole prompt's keys (any
+implementation, K5 included: the span's queries sit at the tail of the
+keys up to its end), and :func:`attention_decode_partial` /
+:func:`merge_attention_partials`, one rank's decode attention over its
+span of the cache and the merge of the ranks' partial softmaxes.
 """
 from __future__ import annotations
 
@@ -99,13 +107,10 @@ def _repeat_kv(k: Array, groups: int) -> Array:
 # --------------------------------------------------------------------- #
 def attention_xla(
     q: Array, k: Array, v: Array, q_positions: Array, k_positions: Array,
-    window: int, *, bidirectional: bool = False, probs_hook=None,
+    window: int, *, bidirectional: bool = False,
 ) -> Array:
     """Materialised-score attention. q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd);
-    positions 1-D (Sq,)/(Sk,), shared across the batch. ``probs_hook``
-    maps the probabilities before the v product (the tensor-parallel
-    layer's ``copy`` when v holds a share of ``head_dim``; v may then be
-    narrower than q and k)."""
+    positions 1-D (Sq,)/(Sk,), shared across the batch."""
     groups = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
@@ -114,8 +119,6 @@ def attention_xla(
     if not bidirectional:
         scores = scores + causal_window_bias(q_positions, k_positions, window)[None, None]
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    if probs_hook is not None:
-        probs = probs_hook(probs)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -217,6 +220,68 @@ def attention_decode(
     bias = torch.where(visible, zero, torch.full_like(zero, _NEG_INF))  # (B, S)
     probs = torch.softmax(scores + bias[:, None, None, :], dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def attention_decode_partial(
+    q: Array, k_span: Array, v_span: Array, q_position: Array, window: int, k_lo: int = 0,
+) -> tuple[Array, Array, Array]:
+    """:func:`attention_decode` over one span of the cache, unnormalised.
+
+    q: (B, 1, H, hd); k/v_span: (B, s, Hkv, hd), the cache positions
+    [k_lo, k_lo + s); q_position: (B,) int. Returns float32 (m (B, H, 1),
+    l (B, H, 1), o (B, 1, H, hd)): the largest visible score, the sum of
+    exp(score − m) and the exp-weighted sum of v. A span with no visible
+    key (past the position, outside the window, or empty) gives m = −inf,
+    l = 0 and o = 0, without NaN."""
+    b, s, hkv, hd = k_span.shape
+    groups = q.shape[2] // hkv
+    k = _repeat_kv(k_span, groups)
+    v = _repeat_kv(v_span, groups)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd**-0.5
+    kpos = torch.arange(k_lo, k_lo + s, dtype=torch.int64, device=q.device)
+    dq = q_position.to(torch.int64)[:, None]
+    visible = kpos[None, :] <= dq
+    if int(window) != GLOBAL:
+        visible = visible & ((dq - kpos[None, :]) < max(int(window), 1))
+    scores = scores.masked_fill(~visible[:, None, None, :], float("-inf"))
+    m = torch.amax(scores, dim=-1) if s else torch.full(
+        scores.shape[:-1], float("-inf"), device=q.device)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m_safe[..., None])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return m, torch.sum(p, dim=-1), o
+
+
+def merge_attention_partials(m: Array, l: Array, o: Array, reduce_max, reduce_sum) -> Array:
+    """The softmax attention of the union of the spans whose partials
+    (:func:`attention_decode_partial`) each rank holds: ``reduce_max`` and
+    ``reduce_sum`` reduce a tensor over the ranks (in place or not). The
+    rank's sums and output are rescaled to the global max and summed in
+    one reduction. Returns (B, 1, H, hd) float32."""
+    mg = reduce_max(m.clone())
+    mg = torch.where(torch.isfinite(mg), mg, torch.zeros_like(mg))
+    scale = torch.exp(m - mg)  # a span with m = -inf weighs 0
+    b, h = l.shape[:2]
+    pack = torch.cat([(l * scale).reshape(b, h, 1),
+                      (o * scale.transpose(1, 2)[..., None]).reshape(b, h, -1)], dim=-1)
+    pack = reduce_sum(pack.contiguous())
+    out = pack[..., 1:] / pack[..., :1]
+    return out.reshape(b, 1, h, -1)
+
+
+def span_attention(
+    impl: str, q: Array, k: Array, v: Array, lo: int, window: int, *,
+    chunk_q: int = 512, chunk_kv: int = 1024,
+) -> Array:
+    """Causal attention of a span of the prompt's queries, q (B, s, H, hd)
+    at positions [lo, lo + s), against the whole prompt's k / v (B, S,
+    Hkv, hd): the keys past the span's end are never visible, so the
+    span's queries attend to k[:, :lo + s] and sit at its tail, the
+    layout K5 reads. ``impl`` as in :func:`select_attention`."""
+    hi = lo + q.shape[1]
+    kp = torch.arange(hi, dtype=torch.int64, device=q.device)
+    return select_attention(impl, q, k[:, :hi], v[:, :hi], kp[lo:], kp, window,
+                            chunk_q=chunk_q, chunk_kv=chunk_kv)
 
 
 def select_attention(

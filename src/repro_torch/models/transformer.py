@@ -19,7 +19,18 @@ contiguous KV cache; :func:`decode_step` advances it one token. The
 cache is a dict ``{"k", "v": (L, B, S, Hkv, hd), "pos": int}`` (HYBRID
 adds float32 ``ssm_state`` (L, B, d_inner, ssm_state) and ``conv_state``
 (L, B, ssm_conv - 1, d_inner)) that ``decode_step`` updates IN PLACE (its
-caller owns it, as the JAX package's callers donate it) and returns.
+caller owns it, as the JAX package's callers donate it) and returns;
+:func:`greedy` picks the next tokens from the logits.
+
+Under mesh rules (DENSE only; every other family raises, naming ROADMAP
+item 11(b)) the same functions run on one rank's share:
+``Runtime.tensor`` (``dist.tensor_parallel.TensorParallel``) computes the
+rank's query heads and vocabulary rows: the logits are the rank's
+vocabulary block, the cache holds its kv heads (whole ``head_dim``) and
+:func:`greedy` is the vocabulary-parallel pick. ``Runtime.sequence``
+(``SequenceParallel``) prefills the rank's span of the prompt against the
+whole prompt's keys, keeps the cache positions ``cache["span"]`` and
+merges each decode step's attention over the ranks. The two compose.
 """
 from __future__ import annotations
 
@@ -34,11 +45,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import GLOBAL, Family, ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
-    attention_xla,
     attention_decode,
+    attention_decode_partial,
     gated_mlp,
     rms_norm,
     select_attention,
+    span_attention,
 )
 from repro_torch.models.params import ParamDecl, init_tree
 
@@ -51,7 +63,10 @@ class Runtime:
     fields belong to the distributed path (ROADMAP item 11(b)); the port's
     single-device path reads only ``moe_impl``. ``tensor`` (a
     ``dist.tensor_parallel.TensorParallel``) runs the DENSE training loss
-    on this rank's parameter blocks (``lm_loss``; see ``_tp_trunk``)."""
+    (``lm_loss``) and serving on this rank's parameter blocks, through the
+    same layer (``layer_qkv``, ``layer_attn_out``, ``layer_ffn``);
+    ``sequence`` (a ``SequenceParallel``) runs DENSE static serving on
+    this rank's span of the prompt and the cache."""
 
     mesh: Any = None
     batch_axes: tuple[str, ...] = ("data",)
@@ -60,6 +75,7 @@ class Runtime:
     moe_impl: str = "dropless"
     moe_group_axes: tuple[str, ...] = ()
     tensor: Any = None
+    sequence: Any = None
 
 
 def check_trunk(cfg: ModelConfig) -> None:
@@ -188,14 +204,22 @@ def attn_out(lp, out: Array) -> Array:
 
 
 def _attn_block(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
-                theta: float):
-    """Self-attention sub-block on pre-normed x (B,S,d) -> (out, (k, v))."""
-    q, k, v = qkv(lp, cfg, x, positions, theta)
-    out = select_attention(
-        cfg.attn_impl, q, k, v, positions, positions, window,
-        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
-    )
-    return attn_out(lp, out), (k, v)
+                theta: float, runtime=Runtime(), lo: int = 0):
+    """Self-attention sub-block on pre-normed x (B,S,d) -> (out, (k, v)).
+    Under ``runtime.tensor`` on the rank's heads; under ``runtime.sequence``
+    x is the span [lo, lo + S) of the prompt, whose queries attend to the
+    whole prompt's keys and values, gathered over the split (the (k, v)
+    returned)."""
+    q, k, v = layer_qkv(lp, cfg, x, positions, theta, runtime)
+    seq = getattr(runtime, "sequence", None)
+    if seq is None:
+        out = select_attention(cfg.attn_impl, q, k, v, positions, positions, window,
+                               chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    else:
+        k, v = torch.split(seq.gather(torch.cat([k, v], dim=-2)), k.shape[-2], dim=-2)
+        out = span_attention(cfg.attn_impl, q, k, v, lo, window,
+                             chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    return layer_attn_out(lp, out, runtime), (k, v)
 
 
 def _ffn_block(lp, cfg: ModelConfig, x: Array, runtime: Runtime = Runtime()):
@@ -273,94 +297,115 @@ def _hybrid_layer(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
 
 
 def _layer_fwd(lp, cfg: ModelConfig, x: Array, positions: Array, window: int,
-               theta: float, runtime: Runtime = Runtime()):
-    """One transformer block (prefill form). Returns (x', (k, v))."""
+               theta: float, runtime: Runtime = Runtime(), lo: int = 0):
+    """One transformer block (prefill form; ``runtime`` and ``lo`` as in
+    ``_attn_block``). Returns (x', (k, v))."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    a, kv = _attn_block(lp, cfg, h, positions, window, theta)
+    a, kv = _attn_block(lp, cfg, h, positions, window, theta, runtime, lo)
     x = x + a
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + _ffn_block(lp, cfg, h, runtime), kv
-
-
-# --------------------------------------------------------------------- #
-# The layer on this rank's blocks (Runtime.tensor; DENSE, training)
-# --------------------------------------------------------------------- #
-def _tp_attn_block(lp, cfg: ModelConfig, tp, x: Array, positions: Array, window: int,
-                   theta: float) -> Array:
-    """Self-attention on this rank's query heads and ``head_dim`` columns:
-    column-parallel q / k / v (the kv heads its query heads read, all of
-    them held where kv does not divide over tp), q and k made whole over
-    ``head_dim`` for ``qk_norm`` and RoPE (which pair i with i + hd/2),
-    the scores then replicated over sp and the probabilities read by the
-    split v, then the row-parallel output reduced over the attention
-    axes. Returns the replicated (B, S, d) output."""
-    hc = tp.copy(x, tp.attn_axes)
-    u0, u1 = tp.kv_used
-    q = _proj(hc, lp["wq"])
-    k, v = _proj(hc, lp["wk"][:, u0:u1]), _proj(hc, lp["wv"][:, u0:u1])
-    if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"][u0:u1], v + lp["bv"][u0:u1]
-    q, k = tp.gather(q, tp.hd_axes), tp.gather(k, tp.hd_axes)
-    if cfg.qk_norm:
-        q = rms_norm(q, tp.gather(lp["q_norm"], tp.hd_axes), cfg.rms_eps)
-        k = rms_norm(k, tp.gather(lp["k_norm"], tp.hd_axes), cfg.rms_eps)
-    q, k = apply_rope(q, positions, theta), apply_rope(k, positions, theta)
-    if tp.hd_axes:
-        if cfg.attn_impl not in ("auto", "xla") or k.shape[1] > 8192:
-            raise NotImplementedError(
-                f"attention {cfg.attn_impl!r} over {k.shape[1]} keys with head_dim split "
-                "over sp: only the materialised-score path is executed (ROADMAP.md queue "
-                "1, item 11(b))")
-        out = attention_xla(q, k, v, positions, positions, window,
-                            probs_hook=lambda p: tp.copy(p, tp.hd_axes))
-    else:
-        out = select_attention(cfg.attn_impl, q, k, v, positions, positions, window,
-                               chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    return tp.reduce(attn_out(lp, out), tp.attn_axes)
+    return x + layer_ffn(lp, cfg, h, runtime), kv
 
 
 def _tp_layers(params, tp) -> list[dict[str, Array]]:
     """Every layer's blocks (``unstacked_layers``), each stacked leaf that
     split computation reads while it is replicated behind one ``copy``
-    over those axes (``TensorParallel.leaf_copies``)."""
+    over those axes (``TensorParallel.leaf_copies``), so its gradient is
+    summed over those ranks once."""
     return unstacked_layers({"layers": {
         k: tp.copy(v, tp.leaf_copies.get(k, ())) for k, v in params["layers"].items()}})
 
 
-def _tp_trunk(params, cfg: ModelConfig, tp, tokens: Array) -> Array:
-    """The vocabulary-parallel embedding (a masked lookup of the rows this
-    rank holds, then a reduce), every layer on this rank's blocks and the
-    final norm. A replicated leaf that split computation reads (kv
-    heads that do not divide over tp, ``qk_norm``) passes a ``copy``
-    first, so its gradient is summed over those ranks once. Returns the
-    replicated normed hidden (B, S, d)."""
-    lo, hi = tp.vocab
-    if tp.vocab_axes:
-        t = tokens.to(torch.int64) - lo
-        here = (t >= 0) & (t < hi - lo)
-        e = params["embed"][torch.clamp(t, 0, hi - lo - 1)]
-        x = tp.reduce(torch.where(here[..., None], e, torch.zeros_like(e[:1, :1])),
-                      tp.vocab_axes)
-    else:
-        x = params["embed"][tokens]
-    if cfg.scale_embeddings:
-        x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
-    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
-    for i, lp in enumerate(_tp_layers(params, tp)):
-        w_i, th_i = static_layer_meta(cfg, i)
-        x = x + _tp_attn_block(lp, cfg, tp, rms_norm(x, lp["attn_norm"], cfg.rms_eps),
-                               positions, w_i, th_i)
-        h = tp.copy(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), tp.mlp_axes)
-        x = x + tp.reduce(gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act),
-                          tp.mlp_axes)
-    return rms_norm(x, params["final_norm"], cfg.rms_eps)
-
-
-def _single_device(runtime: Runtime) -> None:
-    if getattr(runtime, "tensor", None) is not None:
+def check_split(cfg: ModelConfig, runtime) -> tuple[Any, Any]:
+    """``runtime``'s (tensor, sequence) views; a family other than DENSE
+    under either raises (ROADMAP item 11(b))."""
+    tp = getattr(runtime, "tensor", None)
+    seq = getattr(runtime, "sequence", None)
+    if (tp is not None or seq is not None) and cfg.family is not Family.DENSE:
         raise NotImplementedError(
-            "the forward and serving paths on tensor-parallel blocks are not executed "
-            "(the training loss is): ROADMAP.md queue 1, item 11(b), step 3")
+            f"{cfg.name}: the {cfg.family.value} family on a model or sequence split is "
+            "not executed yet; DENSE only: ROADMAP.md queue 1, item 11(b)")
+    return tp, seq
+
+
+# --------------------------------------------------------------------- #
+# The layer on a rank's blocks (the single-device ops without one), for
+# the training loss and serving alike
+# --------------------------------------------------------------------- #
+def embed_tokens(params, cfg: ModelConfig, tokens: Array, runtime=Runtime()) -> Array:
+    """(B, S) token ids -> (B, S, d); under ``runtime.tensor`` with the
+    vocabulary split, a masked lookup of the rows this rank holds, then a
+    reduce."""
+    tp = getattr(runtime, "tensor", None)
+    if tp is None or not tp.vocab_axes:
+        return embed_inputs(params, cfg, tokens=tokens)
+    lo, hi = tp.vocab
+    t = tokens.to(torch.int64) - lo
+    here = (t >= 0) & (t < hi - lo)
+    e = params["embed"][torch.clamp(t, 0, hi - lo - 1)]
+    x = tp.reduce(torch.where(here[..., None], e, torch.zeros_like(e[:1, :1])), tp.vocab_axes)
+    return _scale_embeddings(cfg, x)
+
+
+def layer_qkv(lp, cfg: ModelConfig, h: Array, positions: Array, theta: float,
+              runtime=Runtime()):
+    """:func:`qkv` on the rank's query heads and the kv heads they read
+    under ``runtime.tensor``, each made whole over ``head_dim`` (one
+    all-gather over sp) before ``qk_norm`` and RoPE. The input passes a
+    ``copy`` over the attention axes (for the training loss: its gradient
+    is the sum of the ranks' shares)."""
+    tp = getattr(runtime, "tensor", None)
+    if tp is None:
+        return qkv(lp, cfg, h, positions, theta)
+    u0, u1 = tp.kv_used
+    h = tp.copy(h, tp.attn_axes)
+    q = _proj(h, lp["wq"])
+    k, v = _proj(h, lp["wk"][:, u0:u1]), _proj(h, lp["wv"][:, u0:u1])
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"][u0:u1], v + lp["bv"][u0:u1]
+    q, k, v = tp.gather_heads(q, k, v)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp.whole_head_dim(lp["q_norm"], cfg.head_dim), cfg.rms_eps)
+        k = rms_norm(k, tp.whole_head_dim(lp["k_norm"], cfg.head_dim), cfg.rms_eps)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+
+
+def layer_attn_out(lp, out: Array, runtime=Runtime()) -> Array:
+    """:func:`attn_out`; under ``runtime.tensor`` the rank's ``head_dim``
+    columns through its row-parallel ``wo`` block, reduced over the
+    attention axes."""
+    tp = getattr(runtime, "tensor", None)
+    if tp is None:
+        return attn_out(lp, out)
+    return tp.reduce(attn_out(lp, tp.head_dim_block(out)), tp.attn_axes)
+
+
+def layer_ffn(lp, cfg: ModelConfig, h: Array, runtime=Runtime()) -> Array:
+    """The FFN (``_ffn_block``); under ``runtime.tensor`` the gated MLP on
+    the rank's columns (its input behind a ``copy``), its row-parallel
+    output reduced."""
+    tp = getattr(runtime, "tensor", None)
+    if tp is None:
+        return _ffn_block(lp, cfg, h, runtime)
+    h = tp.copy(h, tp.mlp_axes)
+    return tp.reduce(gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.act),
+                     tp.mlp_axes)
+
+
+def head_logits(params, cfg: ModelConfig, h: Array, runtime=Runtime()) -> Array:
+    """Float32 logits of hidden ``h``: under ``runtime.tensor`` the rank's
+    vocabulary block."""
+    tp = getattr(runtime, "tensor", None)
+    return _head_logits(params, cfg, h, None if tp is None else tp.vocab)
+
+
+def greedy(logits: Array, runtime=Runtime()) -> Array:
+    """(..., V) logits (the rank's vocabulary block under ``runtime.tensor``)
+    -> (...) int64 ids of their largest value, the first of a tie."""
+    tp = getattr(runtime, "tensor", None)
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    return tp.argmax(logits)
 
 
 def _tp_ce(params, cfg: ModelConfig, tp):
@@ -393,6 +438,10 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None):
     if tokens is not None:
         parts.append(params["embed"][tokens])
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    return _scale_embeddings(cfg, x)
+
+
+def _scale_embeddings(cfg: ModelConfig, x: Array) -> Array:
     if cfg.scale_embeddings:
         x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
@@ -401,20 +450,28 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, embeds=None):
 def _trunk(params, cfg: ModelConfig, tokens, embeds, runtime: Runtime, keep: bool):
     """Embed and run every layer. Returns (normed hidden (B, S, d), the
     layers' (k, v) and, for HYBRID, their final (ssm_state, conv_state):
-    lists, empty unless ``keep``)."""
+    lists, empty unless ``keep``). Under ``runtime.sequence`` (DENSE, token
+    ids only) the hidden is this rank's span's of the prompt and (k, v)
+    the whole prompt's."""
     check_trunk(cfg)
-    _single_device(runtime)
-    x = embed_inputs(params, cfg, tokens, embeds)
-    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    tp, seq = check_split(cfg, runtime)
+    if tp is None and seq is None:
+        x = embed_inputs(params, cfg, tokens, embeds)
+        lo, hi = 0, x.shape[1]
+    else:
+        s = tokens.shape[1]
+        lo, hi = seq.prompt_span(s) if seq is not None else (0, s)
+        x = embed_tokens(params, cfg, tokens[:, lo:hi], runtime)
+    positions = torch.arange(lo, hi, dtype=torch.int64, device=x.device)
     kvs, states = [], []
-    for i, lp in enumerate(unstacked_layers(params)):
+    for i, lp in enumerate(unstacked_layers(params) if tp is None else _tp_layers(params, tp)):
         w_i, th_i = static_layer_meta(cfg, i)
         if cfg.family is Family.HYBRID:
             x, kv, ss, cs = _hybrid_layer(lp, cfg, x, positions, w_i, th_i, runtime)
             if keep:
                 states.append((ss, cs))
         else:
-            x, kv = _layer_fwd(lp, cfg, x, positions, w_i, th_i, runtime)
+            x, kv = _layer_fwd(lp, cfg, x, positions, w_i, th_i, runtime, lo)
         if keep:
             kvs.append(kv)
     return rms_norm(x, params["final_norm"], cfg.rms_eps), kvs, states
@@ -423,7 +480,9 @@ def _trunk(params, cfg: ModelConfig, tokens, embeds, runtime: Runtime, keep: boo
 def forward_hidden(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                    runtime=Runtime(), return_kv: bool = False):
     """Full-sequence forward. Returns hidden (B,S,d) [, stacked (k, v) of
-    shape (L, B, S, Hkv, hd) each]."""
+    shape (L, B, S, Hkv, hd) each]. Under ``runtime.sequence`` the hidden
+    is this rank's span's; under ``runtime.tensor`` k and v hold its kv
+    heads."""
     x, kvs, _ = _trunk(params, cfg, tokens, embeds, runtime, return_kv)
     if not return_kv:
         return x
@@ -458,15 +517,14 @@ def lm_loss(params, cfg: ModelConfig, *, tokens=None, embeds=None, targets,
             "lm_loss with attn_impl='flash': K5 (flash_attention_fwd) has no "
             "backward in either package; train with attn_impl 'auto' or 'xla'"
         )
-    tp = getattr(runtime, "tensor", None)  # any object without the field: one device
-    if tp is not None:
-        h = _tp_trunk(params, cfg, tp, tokens)[:, -targets.shape[1]:]
-        return _chunked_ce(params, cfg, tp.copy(h, tp.vocab_axes), targets, loss_mask,
-                           ce=_tp_ce(params, cfg, tp))
     h = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, runtime=runtime)
     # targets are the next-token predictions of the LAST targets.shape[1]
     # positions
     h = h[:, -targets.shape[1]:]
+    tp = getattr(runtime, "tensor", None)  # any object without the field: one device
+    if tp is not None:
+        return _chunked_ce(params, cfg, tp.copy(h, tp.vocab_axes), targets, loss_mask,
+                           ce=_tp_ce(params, cfg, tp))
     return _chunked_ce(params, cfg, h, targets, loss_mask)
 
 
@@ -523,16 +581,24 @@ def ssm_states(cfg: ModelConfig, batch: int, device) -> dict[str, Array]:
             "conv_state": torch.zeros((L, batch, cfg.ssm_conv - 1, di), **f)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None):
-    """A zeroed cache on the CUDA card unless ``device`` names another."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None,
+               runtime=Runtime()):
+    """A zeroed cache on the CUDA card unless ``device`` names another: of
+    ``batch`` rows, the rank's kv heads under ``runtime.tensor`` and its
+    span of ``max_len`` positions under ``runtime.sequence``."""
+    tp, seq = check_split(cfg, runtime)
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    lo, hi = seq.cache_span(max_len) if seq is not None else (0, max_len)
+    hkv = cfg.num_kv_heads if tp is None else tp.kv_heads
+    shape = (cfg.num_layers, batch, hi - lo, hkv, cfg.head_dim)
     cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": 0,
     }
+    if seq is not None:
+        cache["span"] = (lo, hi)
     if cfg.family is Family.HYBRID:
         cache.update(ssm_states(cfg, batch, device))
     return cache
@@ -542,49 +608,68 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None, cache_len: in
             runtime=Runtime()):
     """Run the full prompt: (last-position logits (B,1,V) f32, cache with
     the prompt's KV in rows [0, S) and zeros up to ``cache_len``; HYBRID's
-    with every layer's final SSM and conv states)."""
+    with every layer's final SSM and conv states). Under
+    ``runtime.tensor`` the logits are the rank's vocabulary block and the
+    cache holds its kv heads; under ``runtime.sequence`` the cache holds
+    its span ``cache["span"]`` of the ``cache_len`` positions."""
     h, kvs, states = _trunk(params, cfg, tokens, embeds, runtime, True)
     k, v = (torch.stack(t) for t in zip(*kvs))
     s = k.shape[2]
-    pad = cache_len - s
+    seq = getattr(runtime, "sequence", None)
+    lo, hi = seq.cache_span(cache_len) if seq is not None else (0, cache_len)
+    if seq is not None:
+        k, v = k[:, :, lo:min(hi, s)], v[:, :, lo:min(hi, s)]
+    pad = hi - lo - k.shape[2]
     if pad > 0:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     cache = {"k": k, "v": v, "pos": s}
+    if seq is not None:
+        cache["span"] = (lo, hi)
     if states:
         cache["ssm_state"], cache["conv_state"] = (torch.stack(t) for t in zip(*states))
-    return _head_logits(params, cfg, h[:, -1:]), cache
+    last = h[:, -1:] if seq is None else seq.last(h[:, -1:])
+    return head_logits(params, cfg, last, runtime), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, runtime=Runtime()):
     """One-token decode. tokens: (B, 1) int. Writes the new KV into
     ``cache`` in place, advances ``cache["pos"]`` and returns
-    (logits (B,1,V) f32, cache)."""
+    (logits (B,1,V) f32, cache). Under ``runtime.sequence`` only the rank
+    whose span holds the position writes it, every rank scores its span
+    and the partial softmaxes merge over the ranks."""
     check_trunk(cfg)
-    _single_device(runtime)
+    _, seq = check_split(cfg, runtime)
     pos = int(cache["pos"])
-    x = embed_inputs(params, cfg, tokens=tokens)
+    x = embed_tokens(params, cfg, tokens, runtime)
     b = x.shape[0]
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q_pos = torch.full((b,), pos, dtype=torch.int64, device=x.device)
     k_all, v_all = cache["k"], cache["v"]
+    lo, hi = cache.get("span", (0, k_all.shape[2]))
+    own = seq is None or lo <= pos < hi
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         w_i, th_i = static_layer_meta(cfg, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = qkv(lp, cfg, h, positions, th_i)
-        k_all[i, :, pos] = k[:, 0]
-        v_all[i, :, pos] = v[:, 0]
-        out = attention_decode(q, k_all[i], v_all[i], q_pos, w_i)
-        a = attn_out(lp, out)
+        q, k, v = layer_qkv(lp, cfg, h, positions, th_i, runtime)
+        if own:
+            k_all[i, :, pos - lo] = k[:, 0]
+            v_all[i, :, pos - lo] = v[:, 0]
+        if seq is None:
+            out = attention_decode(q, k_all[i], v_all[i], q_pos, w_i)
+        else:
+            out = seq.merge(*attention_decode_partial(q, k_all[i], v_all[i], q_pos, w_i,
+                                                      lo)).to(q.dtype)
+        a = layer_attn_out(lp, out, runtime)
         if cfg.family is Family.HYBRID:
             a = 0.5 * (a + hybrid_decode(lp, cfg, x, cache, i))
         x = x + a
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _ffn_block(lp, cfg, h, runtime)
+        x = x + layer_ffn(lp, cfg, h, runtime)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     cache["pos"] = pos + 1
-    return _head_logits(params, cfg, x), cache
+    return head_logits(params, cfg, x, runtime), cache
 
 
 def hybrid_decode(lp, cfg: ModelConfig, x: Array, states, i: int) -> Array:

@@ -24,6 +24,14 @@ Correctness contract: with ``attn="dense"`` the engine reproduces the
 sequential per-request oracle token for token; ``attn="paged"`` swaps in
 K7 (float tolerance on the logits). Eager PyTorch compiles nothing, so
 the JAX report's ``n_compiles`` has no counterpart here.
+
+Under mesh rules (``runtime.tensor``, a DENSE model on one rank's
+blocks) every rank runs this loop: its host schedule, page table and
+control tensors come from the trace alone, and the token pick is
+gathered before any rank reads it, so every rank makes the same
+decisions; its pool holds its kv heads. :meth:`decode_collectives` is
+the census of one decode step (the JAX engine's ``decode_hlo_text`` read
+by ``analyze_hlo``).
 """
 from __future__ import annotations
 
@@ -81,6 +89,9 @@ class ServeReport:
     counters: dict[str, int]
     tokens: np.ndarray  # (R, max_gen) int32; row r valid to gen_len[r]
     gen_len: np.ndarray  # (R,)
+    # serve(keep_logits=True): the first decode step's logits of the slots
+    # it advanced, in slot order (the rank's vocabulary block under rules)
+    first_logits: torch.Tensor | None = None
 
     def tokens_for(self, req: int) -> list[int]:
         return self.tokens[req, : int(self.gen_len[req])].tolist()
@@ -126,9 +137,11 @@ class ContinuousBatchingEngine:
         """``tap`` (a :class:`repro_torch.obs.MetricTap`) receives one
         decimated row per decode step from the host's counters; it adds
         no device transfer."""
+        from repro_torch.serve.static import serving_params
+
         self.model = model
         self.tap = tap
-        self.params = params
+        self.params = serving_params(params, runtime)
         self.cfg = cfg
         self.cost = cost
         self.device = params["embed"].device
@@ -140,8 +153,31 @@ class ContinuousBatchingEngine:
                 f"pool of {self.num_pages} pages cannot hold one request "
                 f"({self.plan.pages_per_slot} pages)"
             )
+        self.runtime = runtime
         self._admit = make_admit_fn(model, self.plan, runtime)
         self._decode = make_decode_fn(model, self.plan, runtime, cfg.attn)
+
+    def decode_collectives(self):
+        """The collectives of one decode step (``dist.collectives.
+        CollectiveStats``), read off a step over a zeroed pool with every
+        slot idle: the same program as every step of :meth:`serve`. Every
+        rank of the runtime's groups must call it together."""
+        from repro_torch.dist.collectives import CollectiveLog
+
+        cfg, s = self.cfg, self.cfg.slots
+        dev = self.device
+        pool = init_pool(self.model.cfg, self.plan, s, self.num_pages, device=dev,
+                         runtime=self.runtime)
+        tokens = torch.zeros((s, 1), dtype=torch.int64, device=dev)
+        out_buf = torch.zeros((cfg.max_requests + 1, cfg.max_gen), dtype=torch.int32,
+                              device=dev)
+        zeros = np.zeros((s,), np.int64)
+        ctrl = self._upload(np.zeros((s, self.plan.pages_per_slot), np.int64), zeros,
+                            zeros.astype(bool), np.full((s,), cfg.max_requests), zeros)
+        with CollectiveLog() as log:
+            self._decode(self.params, pool, tokens, out_buf, ctrl["page_table"],
+                         ctrl["positions"], ctrl["active"], ctrl["out_req"], ctrl["out_idx"])
+        return log.stats()
 
     def _upload(self, page_table, positions, active, out_req, out_idx):
         """Fresh device copies of the host mirrors (one blocking copy)."""
@@ -154,7 +190,11 @@ class ContinuousBatchingEngine:
                     out_idx=dev[:, 3], page_table=dev[:, 4:].to(torch.int32).contiguous().reshape(s, -1))
 
     # ------------------------------------------------------------------ #
-    def serve(self, trace: RequestTrace, max_steps: int = 0) -> ServeReport:
+    def serve(self, trace: RequestTrace, max_steps: int = 0,
+              keep_logits: bool = False) -> ServeReport:
+        """Serve ``trace`` (at most ``max_steps`` decode steps when > 0);
+        ``keep_logits`` keeps the first decode step's logits of its live
+        slots (``ServeReport.first_logits``)."""
         cfg, plan, cost = self.cfg, self.plan, self.cost
         dev = self.device
         r = trace.n_requests
@@ -169,7 +209,8 @@ class ContinuousBatchingEngine:
 
         sched = SlotScheduler(cfg.slots, cfg.max_queue, cfg.policy)
         alloc = PageAllocator(self.num_pages)
-        pool = init_pool(self.model.cfg, plan, cfg.slots, self.num_pages, device=dev)
+        pool = init_pool(self.model.cfg, plan, cfg.slots, self.num_pages, device=dev,
+                         runtime=self.runtime)
         tokens = torch.zeros((cfg.slots, 1), dtype=torch.int64, device=dev)
         out_buf = torch.zeros((cfg.max_requests + 1, cfg.max_gen), dtype=torch.int32,
                               device=dev)
@@ -183,6 +224,7 @@ class ContinuousBatchingEngine:
         out_req = np.full((cfg.slots,), cfg.max_requests, np.int64)  # trash row
         out_idx = np.zeros((cfg.slots,), np.int64)
         ctrl = None  # device copies; None = the mirrors changed since the upload
+        first_logits = None
 
         queue = trace.queue
         vclock = 0.0
@@ -263,10 +305,14 @@ class ContinuousBatchingEngine:
             # 4. One batched decode step.
             if ctrl is None:
                 ctrl = self._upload(page_table, positions, active, out_req, out_idx)
-            pool, tokens, out_buf = self._decode(
-                self.params, pool, tokens, out_buf, ctrl["page_table"],
-                ctrl["positions"], ctrl["active"], ctrl["out_req"], ctrl["out_idx"],
-            )
+            args = (self.params, pool, tokens, out_buf, ctrl["page_table"],
+                    ctrl["positions"], ctrl["active"], ctrl["out_req"], ctrl["out_idx"])
+            if keep_logits and first_logits is None:
+                pool, tokens, out_buf, logits = self._decode(*args, keep_logits=True)
+                live = torch.from_numpy(np.nonzero(active)[0]).to(dev)
+                first_logits = logits[live]
+            else:
+                pool, tokens, out_buf = self._decode(*args)
             n_active = int(active.sum())
             decode_steps += 1
             tokens_generated += n_active
@@ -318,5 +364,6 @@ class ContinuousBatchingEngine:
             counters=sched.conservation(),
             tokens=tokens_np,
             gen_len=trace.gen_len.copy(),
+            first_logits=first_logits,
             **summarize(trace, latency, vclock, wall, tokens_generated, energy),
         )

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import Model
-from repro_torch.models.transformer import Runtime
+from repro_torch.models.transformer import Runtime, greedy
 from repro_torch.serve.arrivals import RequestTrace
 from repro_torch.serve.costs import ServeCostModel
 from repro_torch.serve.engine import EngineConfig, ServeReport, summarize, trace_embeds
@@ -69,7 +69,7 @@ class SequentialOracle:
                 batch["patch_embeds"] = embeds[req:req + 1]
             logits, cache = model.prefill(self.params, batch, cache_len=plan.cache_len,
                                           runtime=self.runtime)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]  # (1, 1)
+            tok = greedy(logits[:, -1], self.runtime)[:, None]  # (1, 1)
             out_buf[req, 0] = tok[0, 0].to(out_buf.dtype)
             vclock = start + cost.prefill_ms(prompt_flops, warm)
             energy += cost.prefill_energy_j(prompt_flops, warm)
@@ -77,7 +77,7 @@ class SequentialOracle:
             tokens_generated += 1
             for i in range(1, int(trace.gen_len[req])):
                 logits, cache = model.decode_step(self.params, cache, tok, self.runtime)
-                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                tok = greedy(logits[:, -1], self.runtime)[:, None]
                 out_buf[req, i] = tok[0, 0].to(out_buf.dtype)
                 decode_steps += 1
                 tokens_generated += 1

@@ -36,6 +36,14 @@ package.
 The pool, the next tokens and the output buffer belong to the engine that
 made them, so both programs write them IN PLACE (``index_put_``; the
 JAX package's programs donate them instead).
+
+Under a ``Runtime`` with a ``tensor`` view (a DENSE model on one rank's
+blocks, ``dist.tensor_parallel``) the pool holds the rank's kv heads
+(whole ``head_dim``), admission prefills the rank's query heads through
+K5 and writes its kv heads' pages, the decode step runs K7 on them,
+reduces the row-parallel outputs and picks the token
+vocabulary-parallel; the tokens, the output buffer and every control
+tensor are the same on every rank.
 """
 from __future__ import annotations
 
@@ -111,22 +119,24 @@ class PagePlan:
 
 
 def init_pool(cfg: ModelConfig, plan: PagePlan, slots: int, num_pages: int,
-              dtype=None, device=None):
+              dtype=None, device=None, runtime: Runtime = Runtime()):
     """Zeroed device state on the CUDA card unless ``device`` names
     another. DENSE: k/v pools (L, num_pages + 1, page, Hkv, hd), physical
-    page 0 the trash page; HYBRID adds the slot-indexed float32
+    page 0 the trash page (Hkv: the rank's kv heads under
+    ``runtime.tensor``); HYBRID adds the slot-indexed float32
     ``ssm_state`` and ``conv_state`` (``transformer.ssm_states``). SSM: the
     slot-indexed recurrent state of ``rwkv6.init_cache`` without ``pos``
     (per-slot positions are host state in serving)."""
     check_family(cfg)
+    tp, _ = tf.check_split(cfg, runtime)
     device = resolve_device(device)
     if cfg.family is Family.SSM:
         pool = rwkv6.init_cache(cfg, slots, 0, device=device)
         pool.pop("pos")
         return pool
     dtype = dtype or getattr(torch, cfg.compute_dtype)
-    shape = (cfg.num_layers, num_pages + 1, plan.page_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    hkv = cfg.num_kv_heads if tp is None else tp.kv_heads
+    shape = (cfg.num_layers, num_pages + 1, plan.page_size, hkv, cfg.head_dim)
     pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
     if cfg.family is Family.HYBRID:
@@ -144,13 +154,15 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
     prefill's final states into the slot's rows."""
     cfg = model.cfg
     check_family(cfg)
+    tp, _ = tf.check_split(cfg, runtime)
     ssm = cfg.family is Family.SSM
     is_vlm = cfg.family is Family.VLM
     # Prefill fills whole pages; the padding past the prompt is zeros,
     # overwritten once decode reaches it.
     prefill_len = plan.prompt_pages * plan.page_size
-    shape = None if ssm else (cfg.num_layers, plan.prompt_pages, plan.page_size,
-                              cfg.num_kv_heads, cfg.head_dim)
+    hkv = cfg.num_kv_heads if tp is None else tp.kv_heads
+    shape = None if ssm else (cfg.num_layers, plan.prompt_pages, plan.page_size, hkv,
+                              cfg.head_dim)
 
     @torch.no_grad()
     def admit(params, pool, tokens, out_buf, prompt, *rest):
@@ -161,7 +173,7 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
             pages, slot, req = rest
             batch = {"tokens": prompt}
         logits, cache = model.prefill(params, batch, cache_len=prefill_len, runtime=runtime)
-        first = torch.argmax(logits[0, -1], dim=-1)
+        first = tf.greedy(logits[0, -1], runtime)
         if ssm:
             for key in _SSM_STATE:
                 pool[key][:, slot] = cache[key][:, 0]
@@ -181,16 +193,18 @@ def make_admit_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime()):
 @torch.no_grad()
 def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, tokens,
                             page_table, positions, active, runtime: Runtime,
-                            attn: str, dense_attention=attention_decode):
+                            attn: str, dense_attention=None):
     """Slot-batched analogue of ``transformer.decode_step``: per-slot
     ``positions`` (S,) and the page pool instead of a contiguous cache.
     Writes the new KV (and HYBRID's SSM and conv states, every slot's)
     into ``pool`` in place; returns (logits (S,1,V), pool).
     ``dense_attention`` is the dense mode's attention over the gathered
-    cache (``attention_decode``'s arguments)."""
+    cache (``attention_decode``'s arguments; by default that function). Under ``runtime.tensor`` the
+    step runs on the rank's heads and the logits are its vocabulary
+    block."""
     s = tokens.shape[0]
     page = plan.page_size
-    x = tf.embed_inputs(params, cfg, tokens=tokens)  # (S, 1, d)
+    x = tf.embed_tokens(params, cfg, tokens, runtime)  # (S, 1, d)
     pos2 = positions[:, None]  # (S, 1) per-slot RoPE positions
     rows = torch.arange(s, device=tokens.device)
     # New-token KV target: the slot's current page, or the trash page 0.
@@ -202,7 +216,7 @@ def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, toke
         lp = tf.layer_params(params, i)
         w_i, th_i = static_layer_meta(cfg, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = tf.qkv(lp, cfg, h, pos2, th_i)
+        q, k, v = tf.layer_qkv(lp, cfg, h, pos2, th_i, runtime)
         k_pool[i, tgt, off] = k[:, 0]
         v_pool[i, tgt, off] = v[:, 0]
         if attn == "paged":
@@ -211,15 +225,15 @@ def _paged_transformer_step(params, cfg: ModelConfig, plan: PagePlan, pool, toke
         else:
             kg = gather_pages(k_pool[i], page_table)  # (S, cache_len, Hkv, hd)
             vg = gather_pages(v_pool[i], page_table)
-            out = dense_attention(q, kg, vg, positions, w_i)
-        a = tf.attn_out(lp, out)
+            out = (dense_attention or attention_decode)(q, kg, vg, positions, w_i)
+        a = tf.layer_attn_out(lp, out, runtime)
         if cfg.family is Family.HYBRID:
             a = 0.5 * (a + tf.hybrid_decode(lp, cfg, x, pool, i))
         x = x + a
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + tf._ffn_block(lp, cfg, h, runtime)
+        x = x + tf.layer_ffn(lp, cfg, h, runtime)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return tf._head_logits(params, cfg, x), pool
+    return tf.head_logits(params, cfg, x, runtime), pool
 
 
 def make_decode_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime(),
@@ -227,19 +241,22 @@ def make_decode_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime(),
     """Returns ``step(params, pool, tokens, out_buf, page_table, positions,
     active, out_req, out_idx) -> (pool, tokens, out_buf)``: the one program
     that serves the whole trace. ``pool`` and ``out_buf`` are written in
-    place, ``tokens`` comes back new. ``out_req``/``out_idx`` route each
+    place, ``tokens`` comes back new; ``step(..., keep_logits=True)`` also
+    returns the step's last-position logits (S, V), the rank's vocabulary
+    block under ``runtime.tensor``. ``out_req``/``out_idx`` route each
     slot's token into the output buffer; the host passes the trash row for
     inactive slots. SSM advances every slot's state (an inactive slot's is
     overwritten at its next admission) and reads neither the page table
     nor the positions."""
     cfg = model.cfg
     check_family(cfg)
+    tf.check_split(cfg, runtime)
     if attn not in ATTN_MODES:
         raise ValueError(f"attn must be one of {ATTN_MODES}, got {attn!r}")
 
     @torch.no_grad()
     def step(params, pool, tokens, out_buf, page_table, positions, active, out_req,
-             out_idx):
+             out_idx, keep_logits: bool = False):
         if cfg.family is Family.SSM:
             logits, cache = rwkv6.decode_step(params, cfg, dict(pool, pos=0), tokens)
             pool = {key: cache[key] for key in _SSM_STATE}
@@ -247,8 +264,10 @@ def make_decode_fn(model: Model, plan: PagePlan, runtime: Runtime = Runtime(),
             logits, pool = _paged_transformer_step(params, cfg, plan, pool, tokens,
                                                    page_table, positions, active,
                                                    runtime, attn)
-        nxt = torch.argmax(logits[:, -1], dim=-1)  # (S,)
+        nxt = tf.greedy(logits[:, -1], runtime)  # (S,)
         out_buf[out_req, out_idx] = nxt.to(out_buf.dtype)
+        if keep_logits:
+            return pool, nxt[:, None], out_buf, logits[:, -1]
         return pool, nxt[:, None], out_buf
 
     return step

@@ -110,8 +110,8 @@ def run_both(jm, tm, jfl, tfl, bs, attack=None, key=0, flops=1e9, each=None):
     js = jax_init(jm, jfl, jax.random.PRNGKey(key))
     js_np = jax.tree.map(np.asarray, js)
     ts = convert.fl_state_from_jax(tm.cfg, js_np, device="cpu")
-    jr = jax.jit(jax_make(jm, jfl, JaxAttack(**attack), flops_per_client_round=flops))
-    tr = make_round_fn(tm, tfl, AttackConfig(**attack), flops_per_client_round=flops,
+    jr = jax.jit(jax_make(jm, jfl, attack=JaxAttack(**attack), flops_per_client_round=flops))
+    tr = make_round_fn(tm, tfl, attack=AttackConfig(**attack), flops_per_client_round=flops,
                        draws=JaxDraws(0, fl_rng=js_np.rng))
     jms, tms = [], []
     for b in bs:

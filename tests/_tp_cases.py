@@ -56,7 +56,6 @@ def rank_layer(ctx, spec: dict) -> dict:
     from repro_torch.dist.tensor_parallel import TensorParallel
     from repro_torch.models import Runtime, build_model
     from repro_torch.models import transformer as tf
-    from repro_torch.models.layers import gated_mlp
 
     cfg = torch_cfg(spec["arch"], spec.get("over"))
     rules = split_rules(ctx, cfg, spec["split"])
@@ -75,11 +74,9 @@ def rank_layer(ctx, spec: dict) -> dict:
             if spec["layer"] == "attn":
                 pos = torch.arange(x.shape[1])
                 w, theta = tf.static_layer_meta(cfg, 0)
-                out = tf._tp_attn_block(lp, cfg, tp, x, pos, w, theta)
+                out, _ = tf._attn_block(lp, cfg, x, pos, w, theta, Runtime(tensor=tp))
             else:
-                h = tp.copy(x, tp.mlp_axes)
-                out = tp.reduce(gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"],
-                                          cfg.act), tp.mlp_axes)
+                out = tf.layer_ffn(lp, cfg, x, Runtime(tensor=tp))
             obj = torch.sum(out * torch.from_numpy(spec["cot"]))
         grads = torch.autograd.grad(obj, leaves + ([x] if x is not None else []),
                                     allow_unused=True, materialize_grads=True)

@@ -1,0 +1,36 @@
+"""The static engine under mesh rules on 2 CPU ranks (gloo), batch-parallel
+on the scaled plan of 2 devices (2 rows of a batch of 4 a rank,
+replicated weights, the tokens gathered once at the end), for the
+recurrent families: rwkv6-1.6b (SSM: the slot state, prefill through
+K6's plain version) and hymba-1.5b (HYBRID: attention beside an SSM
+branch). (MoE raises under rules; the VLM and ENCDEC families are in
+``test_torch_serve_dist_vlm_encdec.py``.) Each
+reduced config in float32 with the JAX parameters carried across,
+against the JAX package's single-device static path (``prefill`` then
+greedy ``decode_step``): the tokens equal, the first decode step's
+logits within ``_serve_dist_jax.STATIC_TOL`` and no collective in a
+decode step.
+"""
+import pytest
+from _serve_dist_jax import hold_static
+from _threads import one_thread  # noqa: F401 (autouse)
+
+from repro_torch.dist.world import World
+
+
+@pytest.fixture(scope="module")
+def world():
+    with World(2, backend="gloo", device="cpu", timeout=300.0) as w:
+        yield w
+
+
+FAMILIES = ["rwkv6-1.6b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_batch_parallel_static_engine_matches_jax(world, arch):
+    _, out = hold_static(world, arch, None, 4)
+    assert [r["rows"] for r in out] == [(0, 2), (2, 4)]
+    assert all(r["kind"] == "batch" and r["census"] == {} for r in out)
+
+

@@ -199,6 +199,11 @@ def test_make_trace_is_seeded_and_in_range():
 
 
 def test_launcher_serves_on_the_cpu_and_refuses_the_mesh_options():
+    """One device, then the mesh options on CPU worlds: ``--devices 2
+    --reduced`` serves the same tokens batch-parallel and (batch 1)
+    sequence-parallel as one device does, the continuous engine on each
+    data replica, and ``--multi-pod`` on 4 ranks (pod 2 x zero 2); MoE
+    under rules and ``--devices`` without ``--scale full`` are refused."""
     from repro_torch.launch import serve as launch
 
     rep = launch.main(["--device", "cpu", "--engine", "continuous",
@@ -207,8 +212,19 @@ def test_launcher_serves_on_the_cpu_and_refuses_the_mesh_options():
     assert rep.completed == 4
     out = launch.main(["--device", "cpu", "--prompt-len", "8", "--gen", "3"])
     assert tuple(out.shape) == (4, 3)
+    one = launch.main(["--device", "cpu", "--prompt-len", "8", "--gen", "3", "--batch", "1"])
+    mesh = ["--scale", "full", "--reduced", "--device", "cpu", "--prompt-len", "8",
+            "--gen", "3"]
+    assert torch.equal(launch.main(mesh + ["--devices", "2"]), out)
+    assert torch.equal(launch.main(mesh + ["--devices", "2", "--batch", "1"]), one)
+    assert torch.equal(launch.main(mesh + ["--devices", "4", "--multi-pod"]), out)
+    cont = launch.main(mesh + ["--devices", "2", "--engine", "continuous", "--attn", "paged",
+                               "--requests", "4", "--page-size", "4"])
+    assert cont.completed == 4
+    with pytest.raises(NotImplementedError, match="item 11"):
+        launch.main(mesh + ["--devices", "2", "--arch", "moonshot-v1-16b-a3b"])
     for flag in (["--devices", "8"], ["--multi-pod"], ["--reduced"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="--scale full"):
             launch.main(["--device", "cpu", *flag])
 
 

@@ -210,20 +210,36 @@ def test_bf16_tensor_runs_are_held_against_float32(scale, ok):
     assert exact["ok"] and exact["worst_share_of_tol"] == 0.0
 
 def test_forward_and_serving_on_blocks_raise():
-    """Only the training loss runs on tensor-parallel blocks: the forward,
-    prefill and decode paths raise, naming item 11(b)."""
+    """DENSE serving on tensor-parallel blocks is built: a rank's cache and
+    pool hold the kv heads its query heads read (its prefill and decode
+    steps run in ``tests/test_torch_serve_dist*.py``); every other family
+    on blocks or a sequence split, and the expert axis, still raise,
+    naming item 11(b)."""
     from repro_torch.models import Runtime, build_model
     from repro_torch.models import transformer as tf
 
     cfg = get_reduced("llama3.2-1b")
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    rt = Runtime(tensor=object())
+    tp = TensorParallel.from_rules(rules_at(cfg, MeshPlan(1, 1, 1, ("tp", "sp"), (2, 1))))
+    cache = build_model(cfg).init_cache(1, 8, device="cpu", runtime=Runtime(tensor=tp))
+    assert tuple(cache["k"].shape) == (cfg.num_layers, 1, 8, 1, cfg.head_dim)
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
-        tf.forward_hidden(params, cfg, tokens=toks, runtime=rt)
-    with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
-        model.prefill(params, {"tokens": toks}, 8, rt)
-    cache = model.init_cache(1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
-        model.decode_step(params, cache, toks[:, :1], rt)
+    for arch in ("hymba-1.5b", "internvl2-2b", "moonshot-v1-16b-a3b", "rwkv6-1.6b",
+                 "seamless-m4t-medium"):
+        cfg = get_reduced(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        for rt in (Runtime(tensor=object()), Runtime(sequence=object())):
+            batch = {"tokens": toks, "patch_embeds": torch.zeros((1, 8, cfg.d_model)),
+                     "frames": torch.zeros((1, 4, cfg.d_model))}
+            with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
+                model.prefill(params, batch, 8, rt)
+            with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
+                model.decode_step(params, {"pos": 4}, toks[:, :1], rt)
+            with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
+                model.init_cache(1, 8, device="cpu", runtime=rt)
+            if cfg.family.value in ("hybrid", "vlm", "moe"):
+                with pytest.raises(NotImplementedError, match="item 11\\(b\\)"):
+                    tf.forward_hidden(params, cfg, tokens=toks, runtime=rt)
+    moe = get_config("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="expert axis.*item 11\\(b\\)"):
+        TensorParallel.from_rules(rules_at(moe, mesh_plan(moe, 256)))
